@@ -8,19 +8,30 @@ Run from the repository root; it needs one CUDA device and exits non-zero
 without one, or when any phase fails. Phases, in order:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every kernel of the serving path from ``densefusion_tpu_torch/csrc``;
-3. each kernel against its plain PyTorch version on the card (the remap at
-   the scoring shape, at a ragged shape with a gated row, on exact ties);
-4. the main path at the YCB width (21 objects, N=1000 points, 192 px crops,
-   K=2 refine iterations, random weights from the seed, made as the JAX
-   package's parameter trees and carried across by
+2. build every kernel from ``densefusion_tpu_torch/csrc``, one ``nvcc`` per
+   source, all started together;
+3. each kernel against its plain PyTorch version on the card: the remap at
+   the scoring shape, at a ragged shape with a gated row, on exact ties;
+   the ADD (paired) and ADD-S (min) distance kernels at the phase-1 and
+   refiner shapes, a ragged shape with a gated row, exact ties, batches
+   with every row and with no row symmetric, and hypotheses at the pose,
+   and the autograd Function's backward;
+4. the serving path at the YCB width (21 objects, N=1000 points, 192 px
+   crops, K=2 refine iterations, random weights from the seed, made as the
+   JAX package's parameter trees and carried across by
    ``densefusion_tpu_torch.compat``): ``estimate_frame``
    requests on 480x640 RGB-D frames, ``estimate_batch`` at B=64, and
    ``pose_distances`` on the result, with every kernel's launch count
    reset just before and read just after;
+   4b. the training path at the YCB width: ``create_train_state``, three
+   phase-1 steps at B=32, M=500 (ADD-S on 8 rows), then three phase-2
+   steps at B=32, M=2600, K=2, each step's launch counts reset before it
+   and read after it;
 5. the same B=8 batch on the card and on the CPU, with TF32 off, must agree;
-6. timings: pose frames/s at B=64, and each kernel's, its plain version's
-   and the build's time;
+   5b. one phase-1 and one phase-2 loss and gradient at B=4, dropout off,
+   on the same weights on the card and on the CPU, must agree;
+6. timings: pose frames/s at B=64, the phase-1 and phase-2 step times at
+   B=32, and each kernel's, its plain version's and the build's time;
 7. a JSON line listing every ported kernel (``kernels``);
 8. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
@@ -41,6 +52,8 @@ import torch
 
 NUM_OBJ, NUM_POINTS, CROP, REFINE_ITERS = 21, 1000, 192, 2
 BATCH, NUM_MESH = 64, 500
+TRAIN_BATCH, REFINE_MESH, TRAIN_SYM_ROWS, LR, W = 32, 2600, 8, 1e-4, 0.015
+TRAIN_STEPS = 3   # per phase
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
@@ -242,6 +255,247 @@ def check_kernels(knn, rng) -> dict:
     return {"adds_remap": worst}
 
 
+def pose_problem(rng, b, n, m, dup=False, at_pose=False):
+    """Hypotheses (R, t) around a random ground-truth pose of a model cloud
+    of M points, as CUDA tensors (R, t, model, target). ``dup`` duplicates
+    the targets (exact ties in the ADD-S search); ``at_pose`` puts every
+    hypothesis at the pose (d^2 below the floor)."""
+    from densefusion_tpu_torch.geometry import quat_normalize, quat_to_matrix
+
+    half = m // 2 if dup else m
+    model = 0.05 * rng.standard_normal((b, half, 3))
+    if dup:
+        model = np.concatenate([model, model], axis=1)
+    q_gt = quat_normalize(torch.from_numpy(rng.standard_normal((b, 4))))
+    R_gt = quat_to_matrix(q_gt).numpy()
+    t_gt = rng.uniform(-0.3, 0.3, (b, 3)) + np.array([0.0, 0.0, 0.8])
+    target = np.einsum("bmj,bcj->bmc", model, R_gt) + t_gt[:, None]
+    if at_pose:
+        R = np.broadcast_to(R_gt[:, None], (b, n, 3, 3))
+        t = np.broadcast_to(t_gt[:, None], (b, n, 3))
+    else:
+        q = quat_normalize(torch.from_numpy(
+            q_gt.numpy()[:, None] + 0.3 * rng.standard_normal((b, n, 4))))
+        R = quat_to_matrix(q).numpy()
+        t = t_gt[:, None] + 0.05 * rng.standard_normal((b, n, 3))
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32)).cuda()
+                 for x in (R, t, model, target))
+
+
+def check_add_dist(add_dist, rng) -> dict:
+    """Phase 3: the paired (ADD) and min (ADD-S) kernels against their plain
+    versions, each gated on its rows: dis within rtol 1e-5, the 12
+    coefficients within atol 2e-5 (the kernels pin the rounding of q, d^2
+    and the scores, so only the order of the sums differs), gated rows
+    exactly 0; then the autograd Function's backward on the card equal to
+    ``g * coef`` of the plain versions (atol 2e-5)."""
+    phase1_sym = np.arange(TRAIN_BATCH) < TRAIN_SYM_ROWS
+    cases = [
+        ("phase-1 (32, N=1000, M=500)", (TRAIN_BATCH, NUM_POINTS, NUM_MESH),
+         {}, phase1_sym),
+        ("refiner (32, N=1, M=2600)", (TRAIN_BATCH, 1, REFINE_MESH), {},
+         phase1_sym),
+        ("ragged (3, N=130, M=1003)", (3, 130, 1003), {},
+         np.array([True, False, True])),
+        ("ties (4, N=70, 2x300 duplicated targets), every row symmetric",
+         (4, 70, 600), {"dup": True}, np.ones(4, bool)),
+        ("no symmetric row (3, N=40, M=300)", (3, 40, 300), {},
+         np.zeros(3, bool)),
+        ("at the pose (4, N=20, M=300)", (4, 20, 300), {"at_pose": True},
+         np.array([True, False, True, False])),
+    ]
+    worst = {"add_dist_paired": 0.0, "add_dist_min": 0.0}
+    for name, shape, kw, sym in cases:
+        args = pose_problem(rng, *shape, **kw)
+        for key, kernel, plain, act in (
+                ("add_dist_paired", add_dist.paired_kernel,
+                 add_dist.paired_plain, ~sym),
+                ("add_dist_min", add_dist.min_kernel, add_dist.min_plain,
+                 sym)):
+            a = torch.from_numpy(act.astype(np.int32)).cuda()
+            kd, kc = kernel(*args, a)
+            pd, pc = plain(*args, a)
+            torch.cuda.synchronize()
+            off = ~torch.from_numpy(act).cuda()
+            if kd[off].any() or kc[off].any():
+                raise AssertionError(f"{key}: gated rows not 0 on {name}")
+            if not torch.allclose(kd, pd, rtol=1e-5, atol=0.0):
+                raise AssertionError(f"{key}: dis differs on {name}: "
+                                     f"{float((kd - pd).abs().max())}")
+            cerr = float((kc - pc).abs().max())
+            if cerr > 2e-5:
+                raise AssertionError(f"{key}: coefficients differ on {name}: "
+                                     f"{cerr}")
+            if kw.get("at_pose") and kc.any():
+                raise AssertionError(f"{key}: coefficients not 0 at the pose")
+            err = max(float((kd - pd).abs().max()), cerr)
+            worst[key] = max(worst[key], err)
+            log(f"  {key} kernel == plain on {name}: max abs err {err:.3g} "
+                f"(dis {float((kd - pd).abs().max()):.3g}, coef {cerr:.3g})")
+
+    R, t, model, target = pose_problem(rng, 6, 50, 300)
+    sym = torch.tensor([1, 0, 1, 0, 0, 1], dtype=torch.bool, device="cuda")
+    g = torch.from_numpy(rng.uniform(0.2, 1.0, (6, 50)).astype(
+        np.float32)).cuda()
+    R.requires_grad_(True)
+    t.requires_grad_(True)
+    (add_dist.hypothesis_mean_dist(R, t, model, target, sym) * g).sum() \
+        .backward()
+    _, pc = add_dist.paired_plain(R.detach(), t.detach(), model, target,
+                                  (~sym).int())
+    _, mc = add_dist.min_plain(R.detach(), t.detach(), model, target,
+                               sym.int())
+    want = g[..., None] * torch.where(sym[:, None, None], mc, pc)
+    gerr = max(float((R.grad.reshape(6, 50, 9) - want[..., :9]).abs().max()),
+               float((t.grad - want[..., 9:]).abs().max()))
+    if gerr > 2e-5:
+        raise AssertionError(f"HypothesisMeanDist backward differs: {gerr}")
+    log(f"  HypothesisMeanDist backward == g * coef (plain): max abs err "
+        f"{gerr:.3g}")
+    return worst
+
+
+def train_batch(rng, b, m, device="cuda"):
+    """A training batch made as ``bench.py`` makes it (random image, cloud,
+    choose, classes, model and target points; the first quarter of the rows
+    symmetric, all valid), as tensors on ``device``."""
+    from densefusion_tpu_torch.data import PoseSample, to_device
+
+    return to_device(PoseSample(
+        points=(rng.standard_normal((b, NUM_POINTS, 3)) * 0.05)
+        .astype(np.float32),
+        choose=rng.integers(0, CROP * CROP, (b, NUM_POINTS)).astype(np.int32),
+        img=rng.standard_normal((b, CROP, CROP, 3)).astype(np.float32),
+        target=(rng.standard_normal((b, m, 3)) * 0.05).astype(np.float32),
+        model_points=(rng.standard_normal((b, m, 3)) * 0.05)
+        .astype(np.float32),
+        obj_idx=rng.integers(0, NUM_OBJ, (b,)).astype(np.int32),
+        sym=np.arange(b) < b // 4, valid=np.ones((b,), bool)), device)
+
+
+def _finite_grads(module) -> bool:
+    return all(bool(torch.isfinite(p.grad).all())
+               for p in module.parameters() if p.grad is not None)
+
+
+def _snapshot(module) -> list:
+    return [p.detach().clone() for p in module.parameters()]
+
+
+def _moved(module, before) -> bool:
+    return any(not torch.equal(p, b)
+               for p, b in zip(module.parameters(), before))
+
+
+def train_path(add_dist, rng):
+    """Phase 4b: ``create_train_state``, then three phase-1 steps at B=32,
+    M=500 and three phase-2 steps at B=32, M=2600, K=2. Each
+    step's kernel launch counts are reset before it and read after it:
+    phase 1 must launch the paired and the min kernel, phase 2 the paired
+    kernel 3 times (the main loss and 2 refiner iterations) and the min
+    kernel twice. Every step's loss and gradients must be finite and its
+    parameters must move. Returns (state, batches, launch totals)."""
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.train import (
+        create_train_state, make_pose_train_step, make_refine_train_step,
+    )
+
+    kernels = {"add_dist_paired": add_dist.paired_kernel,
+               "add_dist_min": add_dist.min_kernel}
+    totals = dict.fromkeys(kernels, 0)
+    state = create_train_state(PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ), LR,
+                               SEED)
+    b1 = train_batch(rng, TRAIN_BATCH, NUM_MESH)
+    b2 = train_batch(rng, TRAIN_BATCH, REFINE_MESH)
+    for phase, make_step, batch, module, want in (
+            (1, lambda: make_pose_train_step(state, use_adds=True), b1,
+             state.posenet, None),
+            (2, lambda: make_refine_train_step(state, REFINE_ITERS), b2,
+             state.refiner, {"add_dist_paired": 1 + REFINE_ITERS,
+                             "add_dist_min": REFINE_ITERS})):
+        step = make_step()   # the phase switch: a fresh Adam
+        losses = []
+        for i in range(TRAIN_STEPS):
+            before = _snapshot(module)
+            for k in kernels.values():
+                k.launches = 0
+            metrics = step(batch, W)
+            torch.cuda.synchronize()
+            got = {name: k.launches for name, k in kernels.items()}
+            for name, n in got.items():
+                totals[name] += n
+                if n < 1 or (want is not None and n != want[name]):
+                    raise AssertionError(
+                        f"phase-{phase} step {i}: launches {got}, expected "
+                        f"{want or 'at least 1 each'}")
+            loss = float(metrics["loss"])
+            if not (np.isfinite(loss) and np.isfinite(float(metrics["dis"]))
+                    and _finite_grads(module)):
+                raise AssertionError(f"phase-{phase} step {i}: non-finite "
+                                     f"loss {loss} or gradients")
+            if not _moved(module, before):
+                raise AssertionError(f"phase-{phase} step {i}: no parameter "
+                                     "moved")
+            losses.append(loss)
+        log(f"[4b] phase-{phase} steps at B={TRAIN_BATCH}, M="
+            f"{batch.target.shape[1]}: losses {losses}, launches per step "
+            f"{got}")
+    return state, (b1, b2), totals
+
+
+def train_cpu_agreement(states, rng) -> dict:
+    """Phase 5b: one phase-1 loss and gradient (PoseNet in eval mode, so
+    dropout off; ADD-S on one row) and one phase-2 step
+    (``make_refine_train_step``, K=2) at B=4, on the serving phase's weights
+    on the card and on the CPU, TF32 off. Losses agree to rel 1e-4; every
+    parameter's gradient to ``max|diff| <= 1e-3 * max|grad|``."""
+    from densefusion_tpu_torch.losses import pose_loss
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.train import (
+        TrainState, make_optimizer, make_refine_train_step,
+    )
+
+    batches = (train_batch(rng, 4, NUM_MESH, "cpu"),
+               train_batch(rng, 4, REFINE_MESH, "cpu"))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        pose, ref = PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ)
+        pose.load_state_dict(states[0])
+        ref.load_state_dict(states[1])
+        pose, ref = pose.to(dev).eval(), ref.to(dev)
+        b1, b2 = (type(b)(*(x.to(dev) for x in b)) for b in batches)
+        out = pose(b1.img, b1.points, b1.choose, b1.obj_idx)
+        l1 = pose_loss(out["pred_r"], out["pred_t"], out["pred_c"],
+                       b1.target, b1.model_points, b1.points, b1.sym, W,
+                       sample_weight=b1.valid.float(),
+                       pred_c_logit=out["pred_c_logit"])
+        l1.loss.backward()
+        state = TrainState(step=0, posenet=pose, refiner=ref,
+                           optimizer=make_optimizer(pose.parameters(), LR),
+                           generator=torch.Generator(device=dev))
+        metrics = make_refine_train_step(state, REFINE_ITERS)(b2, W)
+        res[dev] = (float(l1.loss.detach()), float(metrics["loss"]),
+                    {k: p.grad.cpu() for k, p in pose.named_parameters()},
+                    {k: p.grad.cpu() for k, p in ref.named_parameters()})
+    (g1, g2, gpose, gref), (c1, c2, cpose, cref) = res["cuda"], res["cpu"]
+    err = {"phase1_loss_rel": abs(g1 - c1) / abs(c1),
+           "phase2_loss_rel": abs(g2 - c2) / abs(c2)}
+    if err["phase1_loss_rel"] > 1e-4 or err["phase2_loss_rel"] > 1e-4:
+        raise AssertionError(f"losses differ card vs CPU: {err}")
+    for name, gg, cg in (("phase1_grad", gpose, cpose),
+                         ("phase2_grad", gref, cref)):
+        worst = 0.0
+        for k in cg:
+            scale = float(cg[k].abs().max())
+            diff = float((gg[k] - cg[k]).abs().max())
+            if diff > 1e-3 * scale:
+                raise AssertionError(f"{name} {k} differs card vs CPU: "
+                                     f"{diff} against max |grad| {scale}")
+            worst = max(worst, diff / scale if scale else 0.0)
+        err[f"{name}_max_rel_to_max"] = worst
+    return err
+
+
 def main_path(est, frames, mesh):
     """Phase 4: requests through the user-facing entry points."""
     from densefusion_tpu_torch.eval import pose_distances
@@ -340,6 +594,34 @@ def remap_bound_ms(bsz, nq, nr, active_rows) -> tuple[float, str]:
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def add_dist_bound_ms(bsz, n, m, active_rows,
+                      nearest: bool) -> tuple[float, str]:
+    """Least time for one distance kernel's work on these inputs: ~60 fp32
+    operations per (hypothesis, model point) pair of an active row, plus
+    for ADD-S ~8 per (hypothesis, model point, target) triple and 5 per
+    target for ||r||^2; against R, t, model, target and act read once and
+    the (B, N, 13) result written once."""
+    ops = active_rows * n * m * 60
+    if nearest:
+        ops += active_rows * (n * m * m * 8 + 5 * m)
+    nbytes = 4 * (bsz * n * 12 + 2 * bsz * m * 3 + bsz + bsz * n * 13)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def step_ms(step, batch) -> float:
+    """Host-clock mean of 5 train steps after one warm-up step, ended by a
+    sync."""
+    step(batch, W)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(batch, W)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / 5
+
+
 def run() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is "
@@ -349,7 +631,7 @@ def run() -> None:
     if Path(densefusion_tpu_torch.__file__).resolve().parent.parent != root:
         raise SystemExit("densefusion_tpu_torch must come from this checkout")
     from densefusion_tpu_torch.device import precision_policy, resolve_device
-    from densefusion_tpu_torch.ops import build, knn
+    from densefusion_tpu_torch.ops import add_dist, build, knn
 
     # 1. the card
     card = card_line()
@@ -370,6 +652,7 @@ def run() -> None:
     resolve_device("cuda")
     log(f"[3] precision policy {precision_policy()}")
     max_err = check_kernels(knn, rng)
+    max_err.update(check_add_dist(add_dist, np.random.default_rng(SEED + 1)))
 
     # 4. main path
     est, states = seeded_estimator(rng)
@@ -392,10 +675,19 @@ def run() -> None:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
 
+    # 4b. training path (its own launch counts, reset per step)
+    train_state, (b1, b2), train_launches = train_path(
+        add_dist, np.random.default_rng(SEED + 2))
+    log(f"[4b] training path: launches over all steps {train_launches}")
+    launches.update(train_launches)
+
     # 5. card vs CPU, TF32 off
     est_cpu = seeded_estimator(None, states, device="cpu")[0]
     agree = cpu_agreement(est, est_cpu, samples)
     log(f"[5] card vs CPU (TF32 off, {precision_policy()}): {agree}")
+    train_agree = train_cpu_agreement(states, np.random.default_rng(SEED + 3))
+    log(f"[5b] training card vs CPU (B=4, dropout off, TF32 off): "
+        f"{train_agree}")
 
     # 6. timings
     from densefusion_tpu_torch.data import collate
@@ -438,6 +730,58 @@ def run() -> None:
         f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
         f"build {build_s:.2f} s; card {card}")
 
+    from densefusion_tpu_torch.train import (
+        make_pose_train_step, make_refine_train_step,
+    )
+    p1_ms = step_ms(make_pose_train_step(train_state, use_adds=True), b1)
+    p2_ms = step_ms(make_refine_train_step(train_state, REFINE_ITERS), b2)
+    log(f"[6] phase-1 train step B={TRAIN_BATCH} M={NUM_MESH} f32: "
+        f"{p1_ms:.3f} ms = {TRAIN_BATCH * 1e3 / p1_ms:.1f} samples/s; "
+        f"phase-2 step B={TRAIN_BATCH} M={REFINE_MESH} K={REFINE_ITERS}: "
+        f"{p2_ms:.3f} ms = {TRAIN_BATCH * 1e3 / p2_ms:.1f} samples/s; "
+        f"card {card}")
+
+    # the distance kernels at the phase-1 shape (8 of 32 rows symmetric),
+    # and each at the phase-2 shapes for the record
+    rng_t = np.random.default_rng(SEED + 4)
+    sym1 = torch.arange(TRAIN_BATCH, device="cuda") < TRAIN_SYM_ROWS
+    acts = {"add_dist_paired": (~sym1).int(), "add_dist_min": sym1.int()}
+    wrappers = {"add_dist_paired": (add_dist.paired_kernel,
+                                    add_dist.paired_plain, False),
+                "add_dist_min": (add_dist.min_kernel, add_dist.min_plain,
+                                 True)}
+    args1 = pose_problem(rng_t, TRAIN_BATCH, NUM_POINTS, NUM_MESH)
+    dist_times = {}
+    for name, (kernel, plain, nearest) in wrappers.items():
+        a = acts[name]
+        k_ms = graph_ms(lambda: kernel(*args1, a))
+        w_ms = cuda_ms(lambda: kernel(*args1, a), iters=50)
+        p_ms = cuda_ms(lambda: plain(*args1, a), iters=3, warmup=1)
+        rows = int(a.sum())
+        bnd, by = add_dist_bound_ms(TRAIN_BATCH, NUM_POINTS, NUM_MESH, rows,
+                                    nearest)
+        dist_times[name] = (k_ms, w_ms, p_ms, bnd, by)
+        log(f"[6] {name} (32, N=1000, M=500, {rows} rows active): kernel "
+            f"{k_ms:.4f} ms on the card (graph replays), {w_ms:.4f} ms per "
+            f"eager wrapper call, plain {p_ms:.4f} ms, bound {bnd:.5f} ms "
+            f"({by}); card {card}")
+    ones = torch.ones(TRAIN_BATCH, dtype=torch.int32, device="cuda")
+    main2 = pose_problem(rng_t, TRAIN_BATCH, NUM_POINTS, REFINE_MESH)
+    ref2 = pose_problem(rng_t, TRAIN_BATCH, 1, REFINE_MESH)
+    for label, kernel, args, a, rows, nearest in (
+            ("add_dist_paired, phase-2 main loss (32, N=1000, M=2600)",
+             add_dist.paired_kernel, main2, ones, TRAIN_BATCH, False),
+            ("add_dist_paired, refiner (32, N=1, M=2600)",
+             add_dist.paired_kernel, ref2, acts["add_dist_paired"],
+             TRAIN_BATCH - TRAIN_SYM_ROWS, False),
+            ("add_dist_min, refiner (32, N=1, M=2600)", add_dist.min_kernel,
+             ref2, acts["add_dist_min"], TRAIN_SYM_ROWS, True)):
+        k_ms = graph_ms(lambda: kernel(*args, a))
+        bnd, by = add_dist_bound_ms(TRAIN_BATCH, args[0].shape[1],
+                                    REFINE_MESH, rows, nearest)
+        log(f"[6] {label}, {rows} rows active: kernel {k_ms:.4f} ms (graph "
+            f"replays), bound {bnd:.5f} ms ({by}); card {card}")
+
     # 7. kernels line
     kernels = [{
         "name": "adds_remap", "route": "cuda",
@@ -449,10 +793,27 @@ def run() -> None:
         "bound_by": bound_by, "library_ms": None,
         "wrapper_ms": wrapper_ms, "parity": "ok", "build_s": build_s,
     }]
+    for name, line in (("add_dist_paired", 116), ("add_dist_min", 221)):
+        k_ms, w_ms, p_ms, bnd, by = dist_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "densefusion_tpu_torch/csrc/add_dist.cu",
+            "replaces": f"densefusion_tpu/ops/add_dist.py:{line}",
+            "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a per-"
+                            "hypothesis mean ADD(-S) distance",
+            "wrapper_ms": w_ms, "parity": "ok", "build_s": build_s,
+        })
     summary = {"pipeline_ms_b64": pipe_ms,
                "frames_per_s_b64": BATCH * 1e3 / pipe_ms,
                "estimate_batch_ms_b64": serve_ms,
-               "estimate_frame_ms_median": frame_ms, "card": card}
+               "estimate_frame_ms_median": frame_ms,
+               "train_phase1_step_ms_b32": p1_ms,
+               "train_phase1_samples_per_s_b32": TRAIN_BATCH * 1e3 / p1_ms,
+               "train_phase2_step_ms_b32_m2600": p2_ms,
+               "train_cpu_agreement": train_agree, "card": card}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"kernels": kernels}))
 

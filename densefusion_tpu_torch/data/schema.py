@@ -6,6 +6,7 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import numpy as np
+import torch
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -58,3 +59,14 @@ def collate(samples: Sequence[PoseSample]) -> PoseSample:
     """Stack samples into a batched PoseSample of (B, ...) arrays."""
     return PoseSample(*(np.stack([getattr(s, f) for s in samples])
                         for f in PoseSample._fields))
+
+
+def to_device(batch: PoseSample, device) -> PoseSample:
+    """A collated :class:`PoseSample` of arrays -> the same fields as tensors
+    on ``device``: float32 clouds and images, ``long`` ``choose`` and
+    ``obj_idx`` (torch indexes with int64), bool ``sym`` and ``valid``."""
+    dtypes = {"choose": torch.long, "obj_idx": torch.long,
+              "sym": torch.bool, "valid": torch.bool}
+    return PoseSample(*(torch.as_tensor(v, device=device,
+                                        dtype=dtypes.get(f, torch.float32))
+                        for f, v in zip(PoseSample._fields, batch)))

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 # 1-D tap->source weights of the half-pixel 2x bilinear upsample, per output
 # parity: rows = conv taps (y-1, y, y+1) of output pixel y, cols = half-res
@@ -90,3 +91,28 @@ def phase_upsample_conv3x3(x: torch.Tensor, weight: torch.Tensor,
     cout = weight.shape[0]
     y = phase_conv_phases(x, weight, bias).reshape(b, 2, 2, cout, h, w)
     return y.permute(0, 3, 4, 1, 5, 2).reshape(b, cout, 2 * h, 2 * w)
+
+
+class Dropout2d(nn.Module):
+    """Channel-wise dropout of an NCHW map: each (sample, channel) map is
+    kept with probability ``1 - p`` and then scaled by ``1 / (1 - p)``, or
+    zeroed whole (``densefusion_tpu/models/layers.py:254``). The mask is
+    drawn by ``torch.bernoulli`` from the ``generator`` given to
+    ``forward`` (torch's default generator when it is None). The identity in
+    eval mode."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout probability must be in [0, 1), got {p}")
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        probs = torch.full(x.shape[:2] + (1,) * (x.dim() - 2), keep,
+                           dtype=x.dtype, device=x.device)
+        mask = torch.bernoulli(probs, generator=generator)
+        return torch.where(mask.bool(), x / keep, 0.0)

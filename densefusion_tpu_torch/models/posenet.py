@@ -74,6 +74,7 @@ class PoseNet(nn.Module):
     pred_r (B, N, 4) unnormalized wxyz quaternions; pred_t (B, N, 3)
     translation offsets from each point; pred_c (B, N) confidence;
     pred_c_logit (B, N); emb (B, N, emb_dim) color embedding, detached.
+    In train mode the CNN's dropout draws from ``generator``.
     """
 
     def __init__(self, num_obj: int, cnn_variant: str = "resnet18",
@@ -109,8 +110,9 @@ class PoseNet(nn.Module):
             outs.append(torch.bmm(x, w.transpose(1, 2)) + b[:, None, :])
         return outs
 
-    def forward(self, img, points, choose, obj):
-        emb = self.cnn.model.module(img, sample_at=choose.long())
+    def forward(self, img, points, choose, obj, generator=None):
+        emb = self.cnn.model.module(img, sample_at=choose.long(),
+                                    generator=generator)
         feat = self.feat(points, emb)
         pred_r, pred_t, c = self._heads(feat, obj.long())
         logit = c[..., 0].float()

@@ -10,8 +10,10 @@ Only the default decoder is ported: ``fused_decoder=True``, where every
 upsample stage is a half-res phase convolution with replicate borders, and
 the last stage is decoded sparsely at the requested pixels. The zero-border
 dense decoder and the reference-exact align-corners decoder raise
-``NotImplementedError``. Dropout is omitted: the port only runs inference.
-Module names follow the reference's state_dict keys.
+``NotImplementedError``. Train mode adds the JAX package's channel dropout
+(0.3 after the PSP module, 0.15 after up1 and after up2), drawn from the
+generator passed to ``forward``; eval mode has none. Module names follow the
+reference's state_dict keys.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from densefusion_tpu_torch.models.layers import (
-    prelu, adaptive_avg_pool2d, resize_bilinear, phase_conv_phases,
+    Dropout2d, prelu, adaptive_avg_pool2d, resize_bilinear, phase_conv_phases,
     phase_upsample_conv3x3,
 )
 from densefusion_tpu_torch.models.resnet import DilatedResNet
@@ -83,16 +85,22 @@ class PSPNet(nn.Module):
                 "zero-border and align-corners decoders are not")
         self.feats = DilatedResNet(variant)
         self.psp = PSPModule(512, psp_out, sizes)
+        self.drop_1 = Dropout2d(0.3)
+        self.drop_2 = Dropout2d(0.15)    # after up1 and again after up2
         self.up_1 = PSPUpsample(psp_out, 256)
         self.up_2 = PSPUpsample(256, 64)
         self.up_3 = PSPUpsample(64, 64)
         self.final = nn.Sequential(nn.Conv2d(64, emb_dim, 1))
 
     def forward(self, img: torch.Tensor,
-                sample_at: torch.Tensor | None = None) -> torch.Tensor:
+                sample_at: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator`` draws the train-mode dropout masks."""
         w_full = img.shape[2]
         f, _ = self.feats(img.permute(0, 3, 1, 2))
-        p = self.up_2(self.up_1(self.psp(f)))
+        p = self.drop_1(self.psp(f), generator)
+        p = self.drop_2(self.up_1(p), generator)
+        p = self.drop_2(self.up_2(p), generator)
         if sample_at is None:
             p = self.final(self.up_3(p)).permute(0, 2, 3, 1)  # (B, H, W, emb)
         else:

@@ -22,7 +22,7 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("adds_remap",)
+SOURCES = ("adds_remap", "add_dist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

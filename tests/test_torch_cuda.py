@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from densefusion_tpu_torch.ops import knn
+from densefusion_tpu_torch.ops import add_dist, knn
 
 
 def _cuda():
@@ -55,3 +55,16 @@ def test_remap_kernel_ties_pick_lowest_index():
     assert int(idx.max()) < 300
     assert torch.equal(kc, torch.gather(r, 1, idx[..., None].expand(-1, -1,
                                                                      3)))
+
+
+@pytest.mark.cuda
+def test_add_dist_kernels_match_plain():
+    """Both distance kernels against their plain versions and the autograd
+    Function's backward on the card, with ``chip_smoke.py``'s cases and
+    tolerances (phase-1 and refiner shapes, ragged, ties, batches of one
+    kind, at the pose)."""
+    _cuda()
+    import chip_smoke
+
+    worst = chip_smoke.check_add_dist(add_dist, np.random.default_rng(2))
+    assert set(worst) == {"add_dist_paired", "add_dist_min"}

@@ -15,8 +15,9 @@ import torch
 from densefusion_tpu_torch.device import resolve_device
 from densefusion_tpu_torch.eval import InferencePipeline
 from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
-from densefusion_tpu_torch.ops import knn
+from densefusion_tpu_torch.ops import add_dist, knn
 from densefusion_tpu_torch.serve import PoseEstimator
+from densefusion_tpu_torch.train import create_train_state
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -72,6 +73,8 @@ def test_no_device_means_cuda_or_raise():
     pose, ref = PoseNet(2), PoseRefineNet(2)
     with pytest.raises(RuntimeError, match="CUDA"):
         PoseEstimator(pose, ref, pose.state_dict(), ref.state_dict())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(pose, ref, 1e-4, 0)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -83,3 +86,17 @@ def test_remap_kernel_has_no_cpu_fallback():
     with pytest.raises(ValueError):
         knn.adds_remap_kernel(x, x)
     assert knn.adds_remap_kernel.launches == before
+
+
+@pytest.mark.parametrize("kernel", [add_dist.paired_kernel,
+                                    add_dist.min_kernel],
+                         ids=["paired", "min"])
+def test_add_dist_kernels_have_no_cpu_fallback(kernel):
+    """The ADD / ADD-S kernel wrappers refuse CPU tensors instead of
+    computing the plain version; the launch count stays unchanged."""
+    before = kernel.launches
+    R = torch.eye(3).expand(1, 2, 3, 3).contiguous()
+    t, pts = torch.zeros((1, 2, 3)), torch.zeros((1, 4, 3))
+    with pytest.raises(ValueError):
+        kernel(R, t, pts, pts, torch.ones(1, dtype=torch.int32))
+    assert kernel.launches == before
