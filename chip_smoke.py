@@ -16,6 +16,9 @@ without one, or when any phase fails. Phases, in order:
    refiner shapes, a ragged shape with a gated row, exact ties, batches
    with every row and with no row symmetric, and hypotheses at the pose,
    and the autograd Function's backward;
+   3c. the 1-NN kernels (rank 2 and batched) at the ``bench_knn`` shape,
+   the phase-1 ADD-S shape, ragged shapes, exact ties and sentinel-padded
+   refs: indices equal, distances bit-identical;
 4. the serving path at the YCB width (21 objects, N=1000 points, 192 px
    crops, K=2 refine iterations, random weights from the seed, made as the
    JAX package's parameter trees and carried across by
@@ -27,12 +30,20 @@ without one, or when any phase fails. Phases, in order:
    phase-1 steps at B=32, M=500 (ADD-S on 8 rows), then three phase-2
    steps at B=32, M=2600, K=2, each step's launch counts reset before it
    and read after it;
+   4c. the search path: the KNN benchmark CLI in-process, ``knn(k=1)`` at
+   the phase-1 ADD-S shape, and on a one-rank NCCL mesh the sharded and
+   ring searches and the hypothesis-sharded distance with its gradient,
+   each against its single-device result; the process group is then torn
+   down;
 5. the same B=8 batch on the card and on the CPU, with TF32 off, must agree;
    5b. one phase-1 and one phase-2 loss and gradient at B=4, dropout off,
    on the same weights on the card and on the CPU, must agree;
 6. timings: pose frames/s at B=64, the phase-1 and phase-2 step times at
-   B=32, and each kernel's, its plain version's and the build's time;
-7. a JSON line listing every ported kernel (``kernels``);
+   B=32, and each kernel's, its plain version's and the build's time (for
+   the 1-NN kernels also ``torch.cdist(q, r).min(-1)``'s);
+7. a JSON line listing every ported kernel (``kernels``), with its launch
+   count on the path that ported it (``launches``) and on each path
+   (``launches_by_path``);
 8. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -54,6 +65,8 @@ NUM_OBJ, NUM_POINTS, CROP, REFINE_ITERS = 21, 1000, 192, 2
 BATCH, NUM_MESH = 64, 500
 TRAIN_BATCH, REFINE_MESH, TRAIN_SYM_ROWS, LR, W = 32, 2600, 8, 1e-4, 0.015
 TRAIN_STEPS = 3   # per phase
+# the KNN benchmark's shape (densefusion_tpu_torch/cli/benchmark.py)
+KNN_QUERIES, KNN_REFS = 250_000, 500
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
@@ -355,6 +368,174 @@ def check_add_dist(add_dist, rng) -> dict:
     return worst
 
 
+def nn_cases(rng):
+    """Phase 3c's inputs: (name, batched, query, ref) as numpy float32."""
+    def pts(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def dup(r):
+        return np.concatenate([r, r], axis=-2)
+
+    def far(r, n):   # the collectives' sentinel padding
+        return np.concatenate(
+            [r, np.full(r.shape[:-2] + (n, 3), 1.0e15, np.float32)], axis=-2)
+
+    b, m = TRAIN_SYM_ROWS, NUM_MESH
+    return [
+        (f"bench_knn shape (Q={KNN_QUERIES}, R={KNN_REFS})", False,
+         pts(KNN_QUERIES, 3), pts(KNN_REFS, 3)),
+        (f"phase-1 ADD-S rows (B={b}, Q={NUM_POINTS * m}, R={m})", True,
+         pts(b, NUM_POINTS * m, 3), pts(b, m, 3)),
+        ("ragged (Q=37, R=613)", False, pts(37, 3), pts(613, 3)),
+        ("ragged (B=3, Q=37, R=613)", True, pts(3, 37, 3), pts(3, 613, 3)),
+        ("ties (Q=701, 2x300 duplicated refs)", False, pts(701, 3),
+         dup(pts(300, 3))),
+        ("ties (B=4, Q=700, 2x300 duplicated refs)", True, pts(4, 700, 3),
+         dup(pts(4, 300, 3))),
+        ("sentinel-padded (Q=300, R=2598+3)", False, pts(300, 3),
+         far(pts(2598, 3), 3)),
+        ("a shard of sentinels only (Q=17, R=4)", False, pts(17, 3),
+         far(pts(0, 3), 4)),
+        ("sentinel-padded (B=2, Q=90, R=70+5)", True, pts(2, 90, 3),
+         far(pts(2, 70, 3), 5)),
+    ]
+
+
+def check_nn(knn, rng) -> dict:
+    """Phase 3c: the 1-NN kernels (3: rank 2, 4: batched) against their
+    plain versions. Indices must be equal and distances bit-identical: the
+    kernel rounds ||r||^2, q.r, the score and ||q||^2 with ``__fmul_rn`` /
+    ``__fadd_rn`` in the plain version's order and scans refs in ascending
+    order with a strict ``<``, so any difference is a fault, not rounding."""
+    dev = torch.device("cuda")
+    worst = {"nn": 0.0, "nn_batched": 0.0}
+    for name, batched, q, r in nn_cases(rng):
+        key = "nn_batched" if batched else "nn"
+        kernel = knn.nn_batched_kernel if batched else knn.nn_kernel
+        plain = knn.nearest_neighbor_plain_batched if batched \
+            else knn.nearest_neighbor_plain
+        q, r = torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
+        kd, ki = kernel(q, r)
+        pd, pi = plain(q, r)
+        torch.cuda.synchronize()
+        if ki.dtype != pi.dtype or not torch.equal(ki, pi):
+            raise AssertionError(f"{key}: indices differ on {name}")
+        err = float((kd - pd).abs().max())
+        if not torch.equal(kd, pd):
+            raise AssertionError(f"{key}: distances not bit-identical on "
+                                 f"{name}: max abs err {err}")
+        if name.startswith("ties") and int(ki.max()) >= r.shape[-2] // 2:
+            raise AssertionError(f"{key}: ties did not go to the lowest "
+                                 f"index on {name}")
+        worst[key] = max(worst[key], err)
+        log(f"  {key} kernel == plain on {name}: indices equal, max "
+            f"distance err {err}")
+    return worst
+
+
+def search_path(knn, add_dist, rng) -> dict:
+    """Phase 4c: the search path through its user-facing entry points, with
+    the launch counts of ``nn``, ``nn_batched`` and both distance kernels
+    reset just before and read just after: ``python -m
+    densefusion_tpu_torch.cli.benchmark --what knn`` in-process, ``knn(k=1)``
+    at the phase-1 ADD-S shape, then on a one-rank NCCL ``make_mesh(1)`` the
+    sharded and the ring search at the ``bench_knn`` shape and the
+    hypothesis-sharded distance with a gradient at the phase-1 shape, each
+    against its single-device result (computed before the reset). On one
+    rank they run the same kernels on the same inputs, so indices and
+    distances must be equal (the sharded search clamps d >= 0 as the JAX
+    one does) and the distance and its gradient within 1e-6 of the largest
+    element. The 2-D ``(data, point)`` mesh runs the distance too. The
+    process group is torn down before returning."""
+    import torch.distributed as dist
+    from densefusion_tpu_torch import parallel
+    from densefusion_tpu_torch.cli import benchmark
+
+    dev = torch.device("cuda")
+    q = torch.from_numpy(rng.standard_normal((KNN_QUERIES, 3))
+                         .astype(np.float32)).to(dev)
+    r = torch.from_numpy(rng.standard_normal((KNN_REFS, 3))
+                         .astype(np.float32)).to(dev)
+    b, m = TRAIN_SYM_ROWS, NUM_MESH
+    q4 = torch.from_numpy(rng.standard_normal((b, NUM_POINTS * m, 3))
+                          .astype(np.float32)).to(dev)
+    r4 = torch.from_numpy(rng.standard_normal((b, m, 3))
+                          .astype(np.float32)).to(dev)
+    R, t, model, target = pose_problem(rng, TRAIN_BATCH, NUM_POINTS,
+                                       NUM_MESH)
+    sym = torch.arange(TRAIN_BATCH, device=dev) < TRAIN_SYM_ROWS
+    wgt = torch.from_numpy(rng.uniform(0.2, 1.0, (TRAIN_BATCH, NUM_POINTS))
+                           .astype(np.float32)).to(dev)
+
+    def hyp_grad(fn):
+        Rg, tg = R.clone().requires_grad_(True), t.clone().requires_grad_(True)
+        dis = fn(Rg, tg)
+        (dis * wgt).sum().backward()
+        return dis.detach(), Rg.grad, tg.grad
+
+    # single-device references, before the counts are reset
+    want_d, want_i = knn.nearest_neighbor(q, r)
+    want_d4, want_i4 = knn.nearest_neighbor_plain_batched(q4, r4)
+    want_h = hyp_grad(lambda R_, t_: add_dist.hypothesis_mean_dist(
+        R_, t_, model, target, sym))
+    torch.cuda.synchronize()
+
+    kernels = {"nn": knn.nn_kernel, "nn_batched": knn.nn_batched_kernel,
+               "add_dist_paired": add_dist.paired_kernel,
+               "add_dist_min": add_dist.min_kernel}
+    for k in kernels.values():
+        k.launches = 0
+    try:
+        bench = benchmark.main(["--what", "knn"])
+        d4, i4 = knn.knn(q4, r4, k=1)
+        mesh = parallel.make_mesh(1)
+        mesh2 = parallel.make_mesh(1, axis_names=("data", "point"))
+        sharded = parallel.sharded_nearest_neighbor(q, r, mesh)
+        ring = parallel.ring_nearest_neighbor(q, r, mesh)
+        hyp = hyp_grad(lambda R_, t_: parallel.sharded_hypothesis_mean_dist(
+            R_, t_, model, target, sym, mesh))
+        hyp2 = hyp_grad(lambda R_, t_: parallel.sharded_hypothesis_mean_dist(
+            R_, t_, model, target, sym, mesh2, axis="point",
+            batch_axis="data"))
+        torch.cuda.synchronize()
+        got = {name: k.launches for name, k in kernels.items()}
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    log(f"[4c] search path: bench_knn {bench['knn_us']:.2f} us per search "
+        f"({bench['knn_backend']}); {backend} mesh of 1; launches {got}")
+    for name, n in got.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} never launched on the search "
+                                 "path")
+    if bench["knn_backend"] != "cuda" or backend != "nccl":
+        raise AssertionError(f"search path ran on {bench['knn_backend']} / "
+                             f"{backend}, not the card and NCCL")
+    if d4.shape != (b, NUM_POINTS * m, 1) or not torch.equal(i4[..., 0],
+                                                           want_i4) \
+            or not torch.equal(d4[..., 0], want_d4):
+        raise AssertionError("knn(k=1) differs from the plain search")
+    errs = {}
+    for name, (d, i), wd in (("sharded", sharded, want_d.clamp_min(0.0)),
+                             ("ring", ring, want_d)):
+        if not torch.equal(i, want_i) or not torch.equal(d, wd):
+            raise AssertionError(f"{name} search on one rank differs from "
+                                 "the single-device search")
+    for name, got_h in (("hypothesis (data,)", hyp),
+                        ("hypothesis (data, point)", hyp2)):
+        for part, g, w in zip(("dis", "grad R", "grad t"), got_h, want_h):
+            err = float((g - w).abs().max()) / float(w.abs().max())
+            errs[f"{name} {part}"] = err
+            if err > 1e-6:
+                raise AssertionError(f"sharded {name} {part} differs from "
+                                     f"the single device: {err}")
+    log(f"[4c] knn(k=1) at ({b}, {NUM_POINTS * m}, {m}) == plain; sharded "
+        f"and ring searches == single device (indices and distances "
+        f"equal); hypothesis distance rel errors {errs}")
+    return {"launches": got, "bench": bench}
+
+
 def train_batch(rng, b, m, device="cuda"):
     """A training batch made as ``bench.py`` makes it (random image, cloud,
     choose, classes, model and target points; the first quarter of the rows
@@ -594,6 +775,18 @@ def remap_bound_ms(bsz, nq, nr, active_rows) -> tuple[float, str]:
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def nn_bound_ms(bsz, nq, nr) -> tuple[float, str]:
+    """Least time for a 1-NN search's work (kernel 3 with B=1, kernel 4
+    batched): ~8 fp32 operations per (query, ref) pair, 5 per ref for
+    ||r||^2 and 6 per query for ||q||^2 and its add; queries and refs read
+    once, a float32 distance and an int64 index written per query."""
+    ops = bsz * (8 * nq * nr + 5 * nr + 6 * nq)
+    nbytes = bsz * (12 * nq + 12 * nr + 12 * nq)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def add_dist_bound_ms(bsz, n, m, active_rows,
                       nearest: bool) -> tuple[float, str]:
     """Least time for one distance kernel's work on these inputs: ~60 fp32
@@ -653,6 +846,8 @@ def run() -> None:
     log(f"[3] precision policy {precision_policy()}")
     max_err = check_kernels(knn, rng)
     max_err.update(check_add_dist(add_dist, np.random.default_rng(SEED + 1)))
+    log("[3c] the 1-NN kernels against their plain versions")
+    max_err.update(check_nn(knn, np.random.default_rng(SEED + 5)))
 
     # 4. main path
     est, states = seeded_estimator(rng)
@@ -665,21 +860,27 @@ def run() -> None:
     sym = torch.from_numpy(np.arange(BATCH) % 4 == 0).cuda()
     mesh = (model, target, sym)
 
+    # launch counts per path: {path: {kernel: launches}}
     knn.adds_remap_kernel.launches = 0
     samples, dist = main_path(est, frames, mesh)
-    launches = {"adds_remap": knn.adds_remap_kernel.launches}
+    path_launches = {"serving": {"adds_remap": knn.adds_remap_kernel.launches}}
     log(f"[4] main path: 3 frames + B={BATCH} batch + pose_distances "
-        f"(mean {float(dist.mean()):.4f} m); launches {launches}")
-    for name, n in launches.items():
+        f"(mean {float(dist.mean()):.4f} m); launches "
+        f"{path_launches['serving']}")
+    for name, n in path_launches["serving"].items():
         if n == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
 
     # 4b. training path (its own launch counts, reset per step)
-    train_state, (b1, b2), train_launches = train_path(
+    train_state, (b1, b2), path_launches["training"] = train_path(
         add_dist, np.random.default_rng(SEED + 2))
-    log(f"[4b] training path: launches over all steps {train_launches}")
-    launches.update(train_launches)
+    log(f"[4b] training path: launches over all steps "
+        f"{path_launches['training']}")
+
+    # 4c. search path (its own launch counts); ends the process group
+    search = search_path(knn, add_dist, np.random.default_rng(SEED + 6))
+    path_launches["search"] = search["launches"]
 
     # 5. card vs CPU, TF32 off
     est_cpu = seeded_estimator(None, states, device="cpu")[0]
@@ -782,12 +983,46 @@ def run() -> None:
         log(f"[6] {label}, {rows} rows active: kernel {k_ms:.4f} ms (graph "
             f"replays), bound {bnd:.5f} ms ({by}); card {card}")
 
-    # 7. kernels line
+    # the 1-NN kernels at the bench_knn and phase-1 ADD-S shapes
+    def points(*shape):
+        return torch.from_numpy(rng_t.standard_normal(shape)
+                                .astype(np.float32)).cuda()
+
+    nn_times = {}
+    for name, kernel, plain, q, r in (
+            ("nn", knn.nn_kernel, knn.nearest_neighbor_plain,
+             points(KNN_QUERIES, 3), points(KNN_REFS, 3)),
+            ("nn_batched", knn.nn_batched_kernel,
+             knn.nearest_neighbor_plain_batched,
+             points(TRAIN_SYM_ROWS, NUM_POINTS * NUM_MESH, 3),
+             points(TRAIN_SYM_ROWS, NUM_MESH, 3))):
+        k_ms = graph_ms(lambda: kernel(q, r))
+        w_ms = cuda_ms(lambda: kernel(q, r), iters=50)
+        p_ms = cuda_ms(lambda: plain(q, r), iters=3, warmup=1)
+        # the library's nearest neighbour is two calls (and returns the
+        # distance, not its square): a yardstick, not a library_ms
+        ref_ms = cuda_ms(lambda: torch.cdist(q, r).min(-1), iters=5,
+                         warmup=1)
+        bsz = q.shape[0] if q.dim() == 3 else 1
+        bnd, by = nn_bound_ms(bsz, q.shape[-2], r.shape[-2])
+        nn_times[name] = (k_ms, w_ms, p_ms, bnd, by, ref_ms)
+        log(f"[6] {name} {tuple(q.shape)} vs {tuple(r.shape)}: kernel "
+            f"{k_ms:.4f} ms on the card (graph replays), {w_ms:.4f} ms per "
+            f"eager wrapper call, plain {p_ms:.4f} ms, torch.cdist + min "
+            f"{ref_ms:.4f} ms, bound {bnd:.5f} ms ({by}); card {card}")
+
+    # 7. kernels line: "launches" is the count on the kernel's own path (the
+    # slice that ported it), "launches_by_path" its count on every path
+    def launches(name, path):
+        return {"launches": path_launches[path][name],
+                "launches_by_path": {p: c[name] for p, c in
+                                     path_launches.items() if name in c}}
+
     kernels = [{
         "name": "adds_remap", "route": "cuda",
         "source": "densefusion_tpu_torch/csrc/adds_remap.cu",
         "replaces": "densefusion_tpu/ops/knn.py:303",
-        "launches": launches["adds_remap"],
+        **launches("adds_remap", "serving"),
         "max_abs_err": max_err["adds_remap"],
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
@@ -799,12 +1034,26 @@ def run() -> None:
             "name": name, "route": "cuda",
             "source": "densefusion_tpu_torch/csrc/add_dist.cu",
             "replaces": f"densefusion_tpu/ops/add_dist.py:{line}",
-            "launches": launches[name], "max_abs_err": max_err[name],
+            **launches(name, "training"), "max_abs_err": max_err[name],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": None,
             "library_note": "no single PyTorch call computes a per-"
                             "hypothesis mean ADD(-S) distance",
             "wrapper_ms": w_ms, "parity": "ok", "build_s": build_s,
+        })
+    for name, line in (("nn", 89), ("nn_batched", 211)):
+        k_ms, w_ms, p_ms, bnd, by, ref_ms = nn_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "densefusion_tpu_torch/csrc/nn.cu",
+            "replaces": f"densefusion_tpu/ops/knn.py:{line}",
+            **launches(name, "search"), "max_abs_err": max_err[name],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call: torch.cdist(q, r)"
+                            ".min(-1) is two, timed as reference_ms",
+            "reference_ms": ref_ms, "wrapper_ms": w_ms, "parity": "ok",
+            "build_s": build_s,
         })
     summary = {"pipeline_ms_b64": pipe_ms,
                "frames_per_s_b64": BATCH * 1e3 / pipe_ms,
@@ -813,6 +1062,7 @@ def run() -> None:
                "train_phase1_step_ms_b32": p1_ms,
                "train_phase1_samples_per_s_b32": TRAIN_BATCH * 1e3 / p1_ms,
                "train_phase2_step_ms_b32_m2600": p2_ms,
+               "bench_knn": search["bench"],
                "train_cpu_agreement": train_agree, "card": card}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"kernels": kernels}))

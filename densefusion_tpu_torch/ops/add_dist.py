@@ -101,49 +101,33 @@ def min_plain(R, t, model, target, act):
     return _plain(R, t, model, target, act, nearest=True)
 
 
-class AddDistKernel:
-    """ctypes wrapper of one kernel of ``csrc/add_dist.cu``. ``launches``
-    counts the wrapper's launches; nothing else changes it."""
+class AddDistKernel(build.Kernel):
+    """ctypes wrapper of one kernel of ``csrc/add_dist.cu``."""
 
     def __init__(self, name: str, symbol: str):
-        self.name = name
-        self.symbol = symbol
-        self.launches = 0
-        self._fn = None
-
-    def _load(self):
-        if self._fn is None:
-            fn = getattr(build.load("add_dist"), self.symbol)
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+        super().__init__(name, "add_dist", symbol,
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4)
 
     def __call__(self, R, t, model, target, act):
         """R (B, N, 3, 3), t (B, N, 3), model / target (B, M, 3) float32 and
         act (B,) int32, contiguous CUDA tensors on one device ->
         (dis (B, N), coef (B, N, 12)) float32."""
-        dev = R.device
-        if dev.type != "cuda":
-            raise ValueError(f"{self.name} kernel: inputs must be CUDA "
-                             f"tensors, got {dev}")
+        dev = build.cuda_device(self.name, R, t, model, target, act)
         bsz, n = R.shape[:2]
         m = model.shape[1] if model.dim() == 3 else 0
         want = {"R": (bsz, n, 3, 3), "t": (bsz, n, 3), "model": (bsz, m, 3),
                 "target": (bsz, m, 3)}
         for name, x in (("R", R), ("t", t), ("model", model),
                         ("target", target)):
-            if x.device != dev or x.dtype != torch.float32 \
-                    or not x.is_contiguous() or tuple(x.shape) != want[name]:
+            if x.dtype != torch.float32 or not x.is_contiguous() \
+                    or tuple(x.shape) != want[name]:
                 raise ValueError(
                     f"{self.name} kernel: {name} must be a contiguous float32 "
-                    f"{want[name]} tensor on {dev}, got {x.dtype} "
-                    f"{tuple(x.shape)} on {x.device}")
-        if act.device != dev or act.dtype != torch.int32 \
-                or tuple(act.shape) != (bsz,) or not act.is_contiguous():
+                    f"{want[name]} tensor, got {x.dtype} {tuple(x.shape)}")
+        if act.dtype != torch.int32 or tuple(act.shape) != (bsz,) \
+                or not act.is_contiguous():
             raise ValueError(f"{self.name} kernel: act must be a contiguous "
-                             f"int32 ({bsz},) tensor on {dev}")
+                             f"int32 ({bsz},) tensor")
         if not 1 <= bsz <= 65535 or n > 65535 or m < 1:
             raise ValueError(f"{self.name} kernel: need 1 <= B <= 65535, "
                              f"N <= 65535 and M >= 1, got B={bsz} N={n} M={m}")
@@ -153,16 +137,9 @@ class AddDistKernel:
         splits = -(-m // M_CHUNK)
         partial = torch.empty((splits, bsz, n, 13), dtype=torch.float32,
                               device=dev)
-        fn = self._load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(R.data_ptr(), t.data_ptr(), model.data_ptr(),
-                     target.data_ptr(), act.data_ptr(), partial.data_ptr(),
-                     out.data_ptr(), bsz, n, m, splits, stream)
-        if err != 0:
-            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error "
-                               f"{err}")
-        self.launches += 1
+        self.launch(dev, R.data_ptr(), t.data_ptr(), model.data_ptr(),
+                    target.data_ptr(), act.data_ptr(), partial.data_ptr(),
+                    out.data_ptr(), bsz, n, m, splits)
         return out[..., 0], out[..., 1:]
 
 

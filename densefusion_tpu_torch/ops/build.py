@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<digest>.so`` inside
-the package, at first use, and loaded with ``ctypes``. The digest covers
-the source and the flags, so an edited source is rebuilt. Nothing here runs
+the package, at first use, and loaded with ``ctypes``; :class:`Kernel`
+wraps one entry point. The digest covers the source and the flags, so an
+edited source is rebuilt. Nothing here runs
 at import time: the CPU tests import every module on machines with no
 ``nvcc``.
 """
@@ -19,10 +20,12 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("adds_remap", "add_dist")
+SOURCES = ("adds_remap", "add_dist", "nn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,3 +91,43 @@ def load(name: str) -> ctypes.CDLL:
                 build_all((name,))
             lib = _libs[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def cuda_device(kernel: str, *tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device all ``tensors`` lie on; raises otherwise."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{kernel} kernel: inputs must lie on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    return dev
+
+
+class Kernel:
+    """ctypes wrapper of one ``extern "C"`` entry point of
+    ``csrc/<source>.cu``, whose arguments are ``argtypes`` then the CUDA
+    stream and which returns a CUDA error code. Subclasses check their
+    inputs, allocate the outputs and call :meth:`launch`. ``launches``
+    counts the launches; nothing else changes it."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes):
+        self.name = name
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]
+        self.launches = 0
+        self._fn = None
+
+    def launch(self, dev: torch.device, *args) -> None:
+        """Run the entry point with ``args`` on ``dev``'s current stream
+        (building the source first if needed); raises on a CUDA error."""
+        if self._fn is None:
+            fn = getattr(load(self.source), self.symbol)
+            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = self._fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1

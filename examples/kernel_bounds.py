@@ -29,15 +29,6 @@ def _bound(ops: float, nbytes: float) -> tuple[float, str]:
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def nn_bound_ms(bsz: int, nq: int, nr: int) -> tuple[float, str]:
-    """1-NN (``_nn_kernel`` for B=1, ``_nn_kernel_bt`` batched): ~8 fp32
-    operations per (query, ref) pair plus 5 per ref for ||r||^2; queries
-    and refs read once, a float distance and an int32 index written per
-    query."""
-    return _bound(bsz * (8 * nq * nr + 5 * nr),
-                  4 * bsz * (3 * nq + 3 * nr + 2 * nq))
-
-
 def conv3x3_bound_ms(bsz: int, h: int, w: int, cin: int,
                      cout: int) -> tuple[float, str]:
     """3x3 VALID conv of a (B, h+2, w+2, Cin) padded map in float32 (the
@@ -55,9 +46,10 @@ def main() -> None:
          cs.add_dist_bound_ms(b, n, m, b - cs.TRAIN_SYM_ROWS, False)),
         ("2 _min_kernel", "phase 1 (32, N=1000, M=500), 8 rows active",
          cs.add_dist_bound_ms(b, n, m, cs.TRAIN_SYM_ROWS, True)),
-        ("3 _nn_kernel", "one cloud, Q=R=500", nn_bound_ms(1, 500, 500)),
-        ("4 _nn_kernel_bt", "B=64, Q=R=500 (the scoring shape)",
-         nn_bound_ms(cs.BATCH, cs.NUM_MESH, cs.NUM_MESH)),
+        ("3 _nn_kernel", f"bench_knn, Q={cs.KNN_QUERIES}, R={cs.KNN_REFS}",
+         cs.nn_bound_ms(1, cs.KNN_QUERIES, cs.KNN_REFS)),
+        ("4 _nn_kernel_bt", f"phase-1 ADD-S rows, B={cs.TRAIN_SYM_ROWS}, "
+         f"Q={n * m}, R={m}", cs.nn_bound_ms(cs.TRAIN_SYM_ROWS, n * m, m)),
         ("5 _remap_kernel_bt", "B=64, Q=R=500 (the scoring shape)",
          cs.remap_bound_ms(cs.BATCH, cs.NUM_MESH, cs.NUM_MESH, cs.BATCH)),
         ("6 _conv_kernel", "up1's phase conv, B=64, 24x24, 1024 -> 4*256, "

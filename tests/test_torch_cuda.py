@@ -68,3 +68,15 @@ def test_add_dist_kernels_match_plain():
 
     worst = chip_smoke.check_add_dist(add_dist, np.random.default_rng(2))
     assert set(worst) == {"add_dist_paired", "add_dist_min"}
+
+
+@pytest.mark.cuda
+def test_nn_kernels_match_plain():
+    """Kernel 3 (rank 2) and kernel 4 (batched) against their plain versions
+    with ``chip_smoke.py``'s cases (the benchmark and phase-1 ADD-S shapes,
+    ragged, ties, sentinel refs): indices equal, distances bit-identical."""
+    _cuda()
+    import chip_smoke
+
+    worst = chip_smoke.check_nn(knn, np.random.default_rng(3))
+    assert worst == {"nn": 0.0, "nn_batched": 0.0}

@@ -1,11 +1,14 @@
-"""Port parity: the ADD-S remap's plain version against the JAX package's
-Pallas kernel ``_remap_kernel_bt`` (run in TPU interpret mode, as
-``tests/test_knn.py`` runs it) and against its XLA gather path.
+"""Port parity: the plain versions of the 1-NN kernels and of the ADD-S
+remap against the JAX package's Pallas kernels ``_nn_kernel``,
+``_nn_kernel_bt`` and ``_remap_kernel_bt`` (run in TPU interpret mode, as
+``tests/test_knn.py`` runs them) and against its XLA paths; ``knn`` and the
+differentiable ``adds_min_sqdist_minus_qsq`` against the JAX functions; the
+benchmark CLI on the CPU.
 
-Tolerances: coordinates are compared EXACTLY (the winning ref's own
-coordinates are copied, so any argmin disagreement shows); scores to
-rtol/atol 1e-5, since the Pallas kernel forms q.r by a matmul and the port
-by three rounded products.
+Tolerances: indices and remapped coordinates are compared EXACTLY (any
+argmin disagreement shows, ties included); distances and scores to
+rtol/atol 1e-5, since the Pallas kernels form q.r by a matmul and the port
+by three rounded products; gradients to rtol 1e-4 / atol 1e-5.
 """
 
 import numpy as np
@@ -18,8 +21,12 @@ from jax.experimental.pallas import tpu as pltpu
 
 from densefusion_tpu.ops import adds_remap_targets as j_remap_targets
 from densefusion_tpu.ops.knn import (
-    adds_remap_pallas_batched, nearest_neighbor_xla,
+    adds_min_sqdist_minus_qsq as j_min_sqdist, adds_remap_pallas_batched,
+    knn as j_knn, nearest_neighbor as j_nearest_neighbor,
+    nearest_neighbor_pallas, nearest_neighbor_pallas_batched,
+    nearest_neighbor_xla,
 )
+from densefusion_tpu_torch.cli import benchmark
 from densefusion_tpu_torch.ops import knn
 
 from tests.torch_port_util import to_np
@@ -102,3 +109,134 @@ def test_cpu_tensors_take_plain_version_without_launch(rng, monkeypatch):
     r = torch.from_numpy(rng.standard_normal((2, 12, 3)).astype(np.float32))
     knn.adds_remap(q, r, torch.tensor([True, False]))
     assert knn.adds_remap_kernel.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The 1-NN search (TPU kernels 3 and 4)
+# ---------------------------------------------------------------------------
+
+def _nn_pallas(q, r):
+    fn = nearest_neighbor_pallas if q.ndim == 2 \
+        else nearest_neighbor_pallas_batched
+    with jax.disable_jit(), pltpu.force_tpu_interpret_mode():
+        d, i = fn(jnp.asarray(q), jnp.asarray(r))
+    return np.asarray(d), np.asarray(i)
+
+
+def _nn_case(rng, kind, lead):
+    """(query, ref) with leading dims ``lead``: ``ragged`` Q=37 against
+    R=613 (past one 512-ref tile), ``ties`` duplicated refs, ``sentinel``
+    refs padded with the collectives' far-away 1e15 points."""
+    nq, nr = {"ragged": (37, 613), "ties": (200, 150),
+              "sentinel": (90, 70)}[kind]
+    q = rng.standard_normal(lead + (nq, 3)).astype(np.float32)
+    r = rng.standard_normal(lead + (nr, 3)).astype(np.float32)
+    if kind == "ties":
+        r = np.concatenate([r, r], axis=-2)
+    if kind == "sentinel":
+        r = np.concatenate([r, np.full(lead + (5, 3), 1.0e15, np.float32)],
+                           axis=-2)
+    return q, r
+
+
+@pytest.mark.parametrize("kind", ["ragged", "ties", "sentinel"])
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["rank2", "batched"])
+def test_nn_plain_matches_pallas(rng, kind, lead):
+    """Kernel 3's (rank 2) and kernel 4's (batched) plain versions against
+    the Pallas kernels in interpret mode."""
+    q, r = _nn_case(rng, kind, lead)
+    plain = knn.nearest_neighbor_plain if not lead \
+        else knn.nearest_neighbor_plain_batched
+    d, i = plain(torch.from_numpy(q), torch.from_numpy(r))
+    assert d.dtype == torch.float32 and i.dtype == torch.int64
+    want_d, want_i = _nn_pallas(q, r)
+    np.testing.assert_array_equal(to_np(i), want_i)
+    np.testing.assert_allclose(to_np(d), want_d, rtol=1e-5, atol=1e-5)
+    if kind == "ties":
+        assert to_np(i).max() < r.shape[-2] // 2
+
+
+@pytest.mark.parametrize("lead", [(), (2,), (2, 3)])
+def test_nearest_neighbor_dispatch_matches_jax(rng, lead):
+    """Rank 2, 3 and 4 through the public entry, against the JAX
+    ``nearest_neighbor`` (XLA path, vmapped over the leading dims)."""
+    q = rng.standard_normal(lead + (50, 3)).astype(np.float32)
+    r = rng.standard_normal(lead + (40, 3)).astype(np.float32)
+    d, i = knn.nearest_neighbor(torch.from_numpy(q), torch.from_numpy(r))
+    want_d, want_i = j_nearest_neighbor(jnp.asarray(q), jnp.asarray(r),
+                                        backend="xla")
+    assert tuple(d.shape) == tuple(want_d.shape) == lead + (50,)
+    np.testing.assert_array_equal(to_np(i), np.asarray(want_i))
+    np.testing.assert_allclose(to_np(d), np.asarray(want_d), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_knn_matches_jax(rng, k):
+    q = rng.standard_normal((2, 40, 3)).astype(np.float32)
+    r = rng.standard_normal((2, 25, 3)).astype(np.float32)
+    d, i = knn.knn(torch.from_numpy(q), torch.from_numpy(r), k=k)
+    want_d, want_i = j_knn(jnp.asarray(q), jnp.asarray(r), k=k,
+                           backend="xla")
+    assert tuple(d.shape) == (2, 40, k)
+    np.testing.assert_array_equal(to_np(i), np.asarray(want_i))
+    np.testing.assert_allclose(to_np(d), np.asarray(want_d), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("active", [None, [True, False]],
+                         ids=["all-rows", "gated"])
+def test_min_sqdist_value_and_gradient_match_jax(rng, active):
+    """``adds_min_sqdist_minus_qsq`` and its backward ``-2 g coords``
+    against ``jax.grad`` of the JAX function (XLA path)."""
+    pred = rng.standard_normal((2, 50, 3)).astype(np.float32)
+    target = rng.standard_normal((2, 30, 3)).astype(np.float32)
+    g = rng.uniform(0.5, 1.5, (2, 50)).astype(np.float32)
+    act = None if active is None else np.asarray(active)
+
+    def j_loss(p):
+        return jnp.sum(j_min_sqdist(p, jnp.asarray(target),
+                                    None if act is None else jnp.asarray(act),
+                                    "xla") * g)
+
+    p = torch.from_numpy(pred).requires_grad_(True)
+    dm = knn.adds_min_sqdist_minus_qsq(
+        p, torch.from_numpy(target),
+        None if act is None else torch.from_numpy(act))
+    (dm * torch.from_numpy(g)).sum().backward()
+    want = j_min_sqdist(jnp.asarray(pred), jnp.asarray(target),
+                        None if act is None else jnp.asarray(act), "xla")
+    np.testing.assert_allclose(to_np(dm), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(to_np(p.grad),
+                               np.asarray(jax.grad(j_loss)(jnp.asarray(pred))),
+                               rtol=1e-4, atol=1e-5)
+    if act is not None:
+        assert not to_np(dm)[1].any() and not to_np(p.grad)[1].any()
+
+
+def test_cpu_nn_search_launches_nothing(rng, monkeypatch):
+    for k in (knn.nn_kernel, knn.nn_batched_kernel):
+        monkeypatch.setattr(k, "launches", 0)
+    q = torch.from_numpy(rng.standard_normal((2, 10, 3)).astype(np.float32))
+    r = torch.from_numpy(rng.standard_normal((2, 12, 3)).astype(np.float32))
+    knn.nearest_neighbor(q, r)
+    knn.nearest_neighbor(q[0], r[0])
+    knn.knn(q, r, k=1)
+    assert knn.nn_kernel.launches == 0 and knn.nn_batched_kernel.launches == 0
+
+
+def test_bench_knn_cli_on_cpu(capsys):
+    """``--what knn --device cpu`` at a reduced query count: the JAX
+    ``bench_knn``'s keys, the plain backend, one JSON object printed."""
+    import json
+
+    out = benchmark.main(["--what", "knn", "--device", "cpu", "--queries",
+                          "2000"])
+    assert set(out) == {"knn_backend", "knn_us", "knn_pairs_per_s",
+                        "device"}
+    assert out["knn_backend"] == "plain" and out["device"] == "cpu"
+    assert out["knn_us"] > 0
+    assert out["knn_pairs_per_s"] == pytest.approx(
+        2000 * benchmark.NUM_REF / (out["knn_us"] * 1e-6))
+    assert json.loads(capsys.readouterr().out) == out

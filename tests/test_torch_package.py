@@ -15,7 +15,9 @@ import torch
 from densefusion_tpu_torch.device import resolve_device
 from densefusion_tpu_torch.eval import InferencePipeline
 from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+from densefusion_tpu_torch.cli.benchmark import bench_knn
 from densefusion_tpu_torch.ops import add_dist, knn
+from densefusion_tpu_torch.parallel import initialize_distributed, make_mesh
 from densefusion_tpu_torch.serve import PoseEstimator
 from densefusion_tpu_torch.train import create_train_state
 
@@ -100,3 +102,26 @@ def test_add_dist_kernels_have_no_cpu_fallback(kernel):
     with pytest.raises(ValueError):
         kernel(R, t, pts, pts, torch.ones(1, dtype=torch.int32))
     assert kernel.launches == before
+
+
+@pytest.mark.parametrize("kernel", [knn.nn_kernel, knn.nn_batched_kernel],
+                         ids=["nn", "nn_batched"])
+def test_nn_kernels_have_no_cpu_fallback(kernel):
+    """The 1-NN kernel wrappers refuse CPU tensors instead of computing the
+    plain version; the launch count stays unchanged."""
+    before = kernel.launches
+    x = torch.zeros((1, 4, 3) if kernel.batched else (4, 3))
+    with pytest.raises(ValueError):
+        kernel(x, x)
+    assert kernel.launches == before
+
+
+def test_mesh_and_benchmark_need_cuda_or_cpu():
+    """Without a card, the mesh (NCCL by default) and the KNN benchmark
+    raise unless given ``device="cpu"``; no process group is started."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for call in (make_mesh, initialize_distributed, bench_knn):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not torch.distributed.is_initialized()
