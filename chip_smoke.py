@@ -4,8 +4,9 @@ plain versions.
 
     python3 chip_smoke.py
 
-Run from the repository root; it needs one CUDA device and exits non-zero
-without one, or when any phase fails. Phases, in order:
+Run from the repository root; it needs one CUDA device and exits 1 without
+one, outside its checkout (a copy of the script alone), or when any phase
+fails. Phases, in order:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``densefusion_tpu_torch/csrc``, one ``nvcc`` per
@@ -19,6 +20,10 @@ without one, or when any phase fails. Phases, in order:
    3c. the 1-NN kernels (rank 2 and batched) at the ``bench_knn`` shape,
    the phase-1 ADD-S shape, ragged shapes, exact ties and sentinel-padded
    refs: indices equal, distances bit-identical;
+   3d. the decoder's phase-conv kernel (kernel 6) at the decoder's three
+   phase-conv shapes at B=64, the JAX kernel test's ragged shapes and B=1,
+   within 1e-4 of the plain output's largest element, and its autograd
+   route's gradients against the library convolution's;
 4. the serving path at the YCB width (21 objects, N=1000 points, 192 px
    crops, K=2 refine iterations, random weights from the seed, made as the
    JAX package's parameter trees and carried across by
@@ -35,12 +40,21 @@ without one, or when any phase fails. Phases, in order:
    ring searches and the hypothesis-sharded distance with its gradient,
    each against its single-device result; the process group is then torn
    down;
-5. the same B=8 batch on the card and on the CPU, with TF32 off, must agree;
+   4d. the decoder path with kernel 6: the serving PoseNet's trunk and PSP
+   map at B=64, then the three upsample stages through the layer functions
+   with ``conv_backend="kernel"``, each against the library route, the
+   embedding against ``PSPNet(img, sample_at=choose)``, and the zero border
+   at the up2 shape, the kernel's launches reset before and read after;
+   4e. ``estimate_batch`` at B=64, K=2 under the dense zero-border and the
+   align-corners decoders;
+5. the same B=8 batch on the card and on the CPU, with TF32 off, must agree,
+   under each of the three decoders;
    5b. one phase-1 and one phase-2 loss and gradient at B=4, dropout off,
    on the same weights on the card and on the CPU, must agree;
-6. timings: pose frames/s at B=64, the phase-1 and phase-2 step times at
-   B=32, and each kernel's, its plain version's and the build's time (for
-   the 1-NN kernels also ``torch.cdist(q, r).min(-1)``'s);
+6. timings: pose frames/s at B=64 under each decoder, the phase-1 and
+   phase-2 step times at B=32, and each kernel's, its plain version's and
+   the build's time (for the 1-NN kernels also ``torch.cdist(q, r)
+   .min(-1)``'s, for kernel 6 at its three shapes ``F.conv2d``'s);
 7. a JSON line listing every ported kernel (``kernels``), with its launch
    count on the path that ported it (``launches``) and on each path
    (``launches_by_path``);
@@ -68,6 +82,14 @@ TRAIN_STEPS = 3   # per phase
 # the KNN benchmark's shape (densefusion_tpu_torch/cli/benchmark.py)
 KNN_QUERIES, KNN_REFS = 250_000, 500
 SEED = 0
+# the decoder's three phase convolutions at 192 px crops: (stage, h = w of
+# the half-res map, Cin, Cout = 4 phases x the stage's channels)
+DECODER_CONVS = (("up1", CROP // 8, 1024, 4 * 256),
+                 ("up2", CROP // 4, 256, 4 * 64),
+                 ("up3", CROP // 2, 64, 4 * 64))
+# the decoders besides the default fused one, as PoseNet arguments
+OTHER_DECODERS = {"dense zero-border": {"fused_decoder": False},
+                  "align-corners": {"align_corners": True}}
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -167,11 +189,11 @@ def refiner_param_shapes(num_obj: int, emb: int = 32) -> dict:
     return {"params": {"fusion": fusion, **heads}}
 
 
-def seeded_estimator(rng, states=None, device=None):
+def seeded_estimator(rng, states=None, device=None, posenet_kw=None):
     """The YCB-width PoseEstimator with weights drawn from ``rng`` as the
     JAX package's parameter trees and carried across by the port's
     ``compat`` -> (estimator, (posenet_state, refiner_state)). Given
-    ``states``, reuses them instead."""
+    ``states``, reuses them instead; ``posenet_kw`` picks the decoder."""
     from densefusion_tpu_torch import compat
     from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
     from densefusion_tpu_torch.serve import PoseEstimator
@@ -181,7 +203,8 @@ def seeded_estimator(rng, states=None, device=None):
                       seeded_params(posenet_param_shapes(NUM_OBJ), rng)),
                   compat.refiner_state_dict_from_flax(
                       seeded_params(refiner_param_shapes(NUM_OBJ), rng)))
-    est = PoseEstimator(PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ), *states,
+    est = PoseEstimator(PoseNet(NUM_OBJ, **(posenet_kw or {})),
+                        PoseRefineNet(NUM_OBJ), *states,
                         num_points=NUM_POINTS, crop_size=CROP,
                         refine_iters=REFINE_ITERS, seed=SEED, device=device)
     return est, states
@@ -431,6 +454,174 @@ def check_nn(knn, rng) -> dict:
         log(f"  {key} kernel == plain on {name}: indices equal, max "
             f"distance err {err}")
     return worst
+
+
+def conv_cases(rng):
+    """Phase 3d's inputs: (name, xp (B, Cin, h+2, w+2), pk (3, 3, Cin,
+    Cout)) as numpy float32: the decoder's three phase convolutions at
+    B=64, the ragged shapes of the JAX kernel's test
+    (``tests/test_phase_conv.py``) and B=1 at up1."""
+    def case(name, b, h, w, cin, cout):
+        return (f"{name} (B={b}, {h}x{w}, {cin} -> {cout})",
+                rng.standard_normal((b, cin, h + 2, w + 2)).astype(np.float32),
+                (rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin))
+                .astype(np.float32))
+
+    _, hw1, cin1, cout1 = DECODER_CONVS[0]
+    return ([case(name, BATCH, hw, hw, cin, cout)
+             for name, hw, cin, cout in DECODER_CONVS]
+            + [case("ragged Cin 130, Cout 5", 2, 12, 10, 130, 5),
+               case("ragged 5x7 map, Cin 3, Cout 9", 1, 5, 7, 3, 9),
+               case("ragged Cout 96", 1, 24, 24, 64, 96),
+               case("up1 at B=1", 1, hw1, hw1, cin1, cout1)])
+
+
+def check_phase_conv(phase_conv, rng) -> float:
+    """Phase 3d: kernel 6 against its plain version on every case of
+    :func:`conv_cases`, within 1e-4 of the plain output's largest element
+    (the JAX package's on-chip parity bound, ``bench.py:92-103``); then the
+    kernel route's input and weight gradients against the library route's,
+    within 1e-6 of their largest element (both are the library's backward).
+    Returns the largest absolute error of the forward checks."""
+    dev = torch.device("cuda")
+    worst = 0.0
+    cases = conv_cases(rng)
+    for name, xp, pk in cases:
+        xp, pk = torch.from_numpy(xp).to(dev), torch.from_numpy(pk).to(dev)
+        got = phase_conv.phase_conv_kernel(xp, pk)
+        want = phase_conv.conv3x3_valid_plain_nchw(xp, pk)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if got.shape != want.shape or not err <= 1e-4 * scale:
+            raise AssertionError(f"phase_conv kernel differs from plain on "
+                                 f"{name}: {err} against max {scale}")
+        worst = max(worst, err)
+        log(f"  phase_conv kernel == plain on {name}: max abs err {err:.3g} "
+            f"({err / scale:.3g} of the largest)")
+    for name, xp, pk in (cases[3], cases[1]):   # ragged Cin 130, up2
+        xp = torch.from_numpy(xp[:8]).to(dev)
+        pk = torch.from_numpy(pk).to(dev)
+        g = torch.randn((xp.shape[0], pk.shape[-1], xp.shape[2] - 2,
+                         xp.shape[3] - 2), device=dev,
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+        grads = {}
+        for backend in ("kernel", "library"):
+            x, k = xp.clone().requires_grad_(True), \
+                pk.clone().requires_grad_(True)
+            (phase_conv.conv3x3_valid_nchw(x, k, backend) * g).sum() \
+                .backward()
+            grads[backend] = (x.grad, k.grad)
+        for part, a, b in zip(("input", "weight"), grads["kernel"],
+                              grads["library"]):
+            rel = float((a - b).abs().max()) / float(b.abs().max())
+            if rel > 1e-6:
+                raise AssertionError(f"phase_conv {part} gradient differs "
+                                     f"from the library's on {name}: {rel}")
+        log(f"  phase_conv kernel route gradients == library's on {name} "
+            "(B=8 at most)")
+    return worst
+
+
+def decoder_path(est, samples, phase_conv) -> dict:
+    """Phase 4d: the decoder path with kernel 6 selected. The serving
+    PoseNet's trunk and PSP module give the B=64 (64, 1024, 24, 24) map
+    once; then the three upsample stages run through the layer functions
+    with ``conv_backend="kernel"``, each held to the "library" route on the
+    same input at 1e-4 of its largest element: up1 and up2 as
+    ``phase_upsample_conv3x3`` (replicate border) + PReLU, up3 as
+    ``phase_conv_phases``, the sparse phase gather, PReLU and the final 1x1.
+    The embedding is held to ``PSPNet(img, sample_at=choose)``; the zero
+    border runs once at the up2 shape. The kernel's launch count is reset
+    before and read after; it is counted per stage."""
+    import torch.nn.functional as F
+    from densefusion_tpu_torch.data import collate
+    from densefusion_tpu_torch.models.layers import (
+        phase_conv_phases, phase_upsample_conv3x3, prelu,
+    )
+    from densefusion_tpu_torch.models.pspnet import sample_phases
+
+    b = collate(samples)
+    dev = est.pipeline.device
+    img = torch.as_tensor(b.img, device=dev)
+    choose = torch.as_tensor(b.choose, device=dev).long()
+    psp = est.pipeline.posenet.cnn.model.module
+    kernel = phase_conv.phase_conv_kernel
+    rows, cols = choose // CROP, choose % CROP
+
+    def stage3(x, backend):
+        conv = psp.up_3.conv[1]
+        return phase_conv_phases(x, conv.weight, conv.bias, backend)
+
+    def stage(mod, border="replicate"):
+        conv = mod.conv[1]
+        return lambda x, backend: prelu(phase_upsample_conv3x3(
+            x, conv.weight, conv.bias, border=border, conv_backend=backend),
+            mod.conv[2].weight)
+
+    errs, counts = {}, {}
+
+    def run(name, fn, x):
+        before = kernel.launches
+        got = fn(x, "kernel")
+        counts[name] = kernel.launches - before
+        want = fn(x, "library")
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        errs[name] = rel
+        if got.shape != want.shape or not rel <= 1e-4:
+            raise AssertionError(f"decoder {name}: kernel route differs from "
+                                 f"the library route by {rel} of the largest")
+        return got
+
+    with torch.no_grad():
+        want_emb = psp(img, sample_at=choose)
+        f, _ = psp.feats(img.permute(0, 3, 1, 2))
+        x0 = psp.psp(f)
+        kernel.launches = 0
+        x1 = run("up1", stage(psp.up_1), x0)
+        x2 = run("up2", stage(psp.up_2), x1)
+        y4 = run("up3", stage3, x2)
+        g = prelu(sample_phases(y4, rows, cols), psp.up_3.conv[2].weight)
+        final = psp.final[0]
+        emb = F.log_softmax(F.linear(g, final.weight[:, :, 0, 0],
+                                     final.bias), dim=-1)
+        run("up2 zero border", stage(psp.up_2, "zero"), x1)
+        total = kernel.launches
+    if tuple(x0.shape) != (BATCH, 1024, CROP // 8, CROP // 8):
+        raise AssertionError(f"PSP map of shape {tuple(x0.shape)}")
+    if total == 0 or any(n == 0 for n in counts.values()):
+        raise AssertionError(f"phase_conv never launched on a decoder stage: "
+                             f"{counts}")
+    rel = float((emb - want_emb).abs().max()) / float(want_emb.abs().max())
+    errs["embedding vs PSPNet"] = rel
+    if emb.shape != (BATCH, NUM_POINTS, 32) or not rel <= 1e-4:
+        raise AssertionError(f"decoder embedding {tuple(emb.shape)} differs "
+                             f"from PSPNet's by {rel} of the largest")
+    log(f"[4d] decoder path at B={BATCH} with the kernel: launches "
+        f"{total} ({counts}); errors against the library route / PSPNet "
+        f"(of the largest) {errs}")
+    return {"launches": total, "by_stage": counts, "rel_errors": errs}
+
+
+def other_decoders(states, samples) -> dict:
+    """Phase 4e: ``estimate_batch`` at B=64, K=2 through a PoseEstimator over
+    ``PoseNet(21, fused_decoder=False)`` and one over ``PoseNet(21,
+    align_corners=True)``, on the serving weights: finite poses, unit
+    quaternions, every row valid. Returns {name: estimator}."""
+    ests = {}
+    for name, kw in OTHER_DECODERS.items():
+        est = seeded_estimator(None, states, posenet_kw=kw)[0]
+        quat, trans, conf, valid = est.estimate_batch(samples)
+        if quat.shape != (BATCH, 4) or not valid.all() or not (
+                np.isfinite(quat).all() and np.isfinite(trans).all()
+                and np.isfinite(conf).all()) or np.abs(
+                    np.linalg.norm(quat, axis=1) - 1).max() > 1e-4:
+            raise AssertionError(f"bad estimate_batch output under the "
+                                 f"{name} decoder")
+        log(f"[4e] estimate_batch B={BATCH} K={REFINE_ITERS} under the "
+            f"{name} decoder ({kw}): finite, unit quaternions, all valid")
+        ests[name] = est
+    return ests
 
 
 def search_path(knn, add_dist, rng) -> dict:
@@ -803,6 +994,19 @@ def add_dist_bound_ms(bsz, n, m, active_rows,
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def conv_bound_ms(bsz, h, w, cin, cout) -> tuple[float, str]:
+    """Least time for kernel 6's work: a 3x3 VALID conv of a (B, Cin, h+2,
+    w+2) padded map in float32 (the port's precision policy), 2 operations
+    per multiply-add over the h x w outputs (not the phantom columns); the
+    padded input, the weights and the (B, Cout, h, w) output moved once."""
+    ops = 2 * 9 * bsz * h * w * cin * cout
+    nbytes = 4 * (bsz * (h + 2) * (w + 2) * cin + 9 * cin * cout
+                  + bsz * h * w * cout)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def step_ms(step, batch) -> float:
     """Host-clock mean of 5 train steps after one warm-up step, ended by a
     sync."""
@@ -815,16 +1019,26 @@ def step_ms(step, batch) -> float:
     return 1e3 * (time.perf_counter() - t0) / 5
 
 
+def check_checkout() -> None:
+    """Exit (code 1) unless the port's package is importable from this
+    script's own checkout: a copy of the script alone must not run."""
+    root = Path(__file__).resolve().parent
+    try:
+        import densefusion_tpu_torch
+    except ImportError as e:
+        raise SystemExit(f"chip_smoke.py must run inside a checkout of the "
+                         f"repository: {e}") from None
+    if Path(densefusion_tpu_torch.__file__).resolve().parent.parent != root:
+        raise SystemExit("densefusion_tpu_torch must come from this checkout")
+
+
 def run() -> None:
+    check_checkout()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is "
                          "available")
-    root = Path(__file__).resolve().parent
-    import densefusion_tpu_torch
-    if Path(densefusion_tpu_torch.__file__).resolve().parent.parent != root:
-        raise SystemExit("densefusion_tpu_torch must come from this checkout")
     from densefusion_tpu_torch.device import precision_policy, resolve_device
-    from densefusion_tpu_torch.ops import add_dist, build, knn
+    from densefusion_tpu_torch.ops import add_dist, build, knn, phase_conv
 
     # 1. the card
     card = card_line()
@@ -848,6 +1062,9 @@ def run() -> None:
     max_err.update(check_add_dist(add_dist, np.random.default_rng(SEED + 1)))
     log("[3c] the 1-NN kernels against their plain versions")
     max_err.update(check_nn(knn, np.random.default_rng(SEED + 5)))
+    log("[3d] kernel 6 (phase_conv) against its plain version")
+    max_err["phase_conv"] = check_phase_conv(
+        phase_conv, np.random.default_rng(SEED + 7))
 
     # 4. main path
     est, states = seeded_estimator(rng)
@@ -882,10 +1099,22 @@ def run() -> None:
     search = search_path(knn, add_dist, np.random.default_rng(SEED + 6))
     path_launches["search"] = search["launches"]
 
+    # 4d. decoder path with kernel 6 (its own launch count)
+    decoder = decoder_path(est, samples, phase_conv)
+    path_launches["decoder"] = {"phase_conv": decoder["launches"]}
+
+    # 4e. serving under the dense and the align-corners decoders
+    other_ests = other_decoders(states, samples)
+
     # 5. card vs CPU, TF32 off
     est_cpu = seeded_estimator(None, states, device="cpu")[0]
     agree = cpu_agreement(est, est_cpu, samples)
     log(f"[5] card vs CPU (TF32 off, {precision_policy()}): {agree}")
+    for name, est_d in other_ests.items():
+        est_d_cpu = seeded_estimator(None, states, device="cpu",
+                                     posenet_kw=OTHER_DECODERS[name])[0]
+        agree[name] = cpu_agreement(est_d, est_d_cpu, samples)
+        log(f"[5] card vs CPU under the {name} decoder: {agree[name]}")
     train_agree = train_cpu_agreement(states, np.random.default_rng(SEED + 3))
     log(f"[5b] training card vs CPU (B=4, dropout off, TF32 off): "
         f"{train_agree}")
@@ -919,6 +1148,13 @@ def run() -> None:
         f"on the card); estimate_batch with host collate and copies: "
         f"{serve_ms:.3f} ms = {BATCH * 1e3 / serve_ms:.1f} frames/s; "
         f"card {card}")
+    decoder_fps = {}
+    for name, est_d in other_ests.items():
+        d_ms = cuda_ms(lambda: est_d.pipeline(*dev_args), iters=5, warmup=1)
+        decoder_fps[name] = BATCH * 1e3 / d_ms
+        log(f"[6] pipeline B={BATCH} K={REFINE_ITERS} under the {name} "
+            f"decoder: {d_ms:.3f} ms = {decoder_fps[name]:.1f} frames/s; "
+            f"card {card}")
 
     pred = model + 0.001
     kernel_ms = graph_ms(lambda: knn.adds_remap_kernel(pred, target))
@@ -1011,6 +1247,34 @@ def run() -> None:
             f"eager wrapper call, plain {p_ms:.4f} ms, torch.cdist + min "
             f"{ref_ms:.4f} ms, bound {bnd:.5f} ms ({by}); card {card}")
 
+    # kernel 6 at the decoder's three phase-conv shapes, beside its plain
+    # version and the library convolution on the same padded input
+    import torch.nn.functional as F
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    conv_times = {}
+    for name, hw, cin, cout in DECODER_CONVS:
+        xp = torch.randn((BATCH, cin, hw + 2, hw + 2), device="cuda",
+                         generator=gen)
+        pk = torch.randn((3, 3, cin, cout), device="cuda",
+                         generator=gen) / np.sqrt(9 * cin)
+        w_oihw = pk.permute(3, 2, 0, 1).contiguous()
+        k_ms = graph_ms(lambda: phase_conv.phase_conv_kernel(xp, pk),
+                        replays=20)
+        p_ms = cuda_ms(lambda: phase_conv.conv3x3_valid_plain_nchw(xp, pk),
+                       iters=3, warmup=1)
+        l_ms = cuda_ms(lambda: F.conv2d(xp, w_oihw), iters=10, warmup=2)
+        lib_diff = float((phase_conv.phase_conv_kernel(xp, pk)
+                          - F.conv2d(xp, w_oihw)).abs().max())
+        bnd, by = conv_bound_ms(BATCH, hw, hw, cin, cout)
+        conv_times[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                            "bound_ms": bnd, "bound_by": by,
+                            "max_abs_diff_vs_library": lib_diff}
+        log(f"[6] phase_conv {name} (B={BATCH}, {hw}x{hw}, {cin} -> {cout}): "
+            f"kernel {k_ms:.4f} ms (graph replays), plain {p_ms:.4f} ms, "
+            f"F.conv2d {l_ms:.4f} ms ({precision_policy()}), bound "
+            f"{bnd:.4f} ms ({by}), {k_ms / bnd:.2f}x the bound; kernel vs "
+            f"F.conv2d max abs diff {lib_diff}; card {card}")
+
     # 7. kernels line: "launches" is the count on the kernel's own path (the
     # slice that ported it), "launches_by_path" its count on every path
     def launches(name, path):
@@ -1055,6 +1319,20 @@ def run() -> None:
             "reference_ms": ref_ms, "wrapper_ms": w_ms, "parity": "ok",
             "build_s": build_s,
         })
+    up1 = conv_times["up1"]
+    kernels.append({
+        "name": "phase_conv", "route": "cuda",
+        "source": "densefusion_tpu_torch/csrc/phase_conv.cu",
+        "replaces": "densefusion_tpu/ops/phase_conv.py:72",
+        **launches("phase_conv", "decoder"),
+        "launches_by_stage": decoder["by_stage"],
+        "max_abs_err": max_err["phase_conv"], "ms": up1["ms"],
+        "plain_ms": up1["plain_ms"], "bound_ms": up1["bound_ms"],
+        "bound_by": up1["bound_by"], "library_ms": up1["library_ms"],
+        "library_note": "F.conv2d on the same padded input, VALID, TF32 off",
+        "shape": "up1 (B=64, 24x24, 1024 -> 1024)", "by_shape": conv_times,
+        "parity": "ok", "build_s": build_s,
+    })
     summary = {"pipeline_ms_b64": pipe_ms,
                "frames_per_s_b64": BATCH * 1e3 / pipe_ms,
                "estimate_batch_ms_b64": serve_ms,
@@ -1063,6 +1341,9 @@ def run() -> None:
                "train_phase1_samples_per_s_b32": TRAIN_BATCH * 1e3 / p1_ms,
                "train_phase2_step_ms_b32_m2600": p2_ms,
                "bench_knn": search["bench"],
+               "frames_per_s_b64_other_decoders": decoder_fps,
+               "decoder_path_rel_errors": decoder["rel_errors"],
+               "serving_cpu_agreement": agree,
                "train_cpu_agreement": train_agree, "card": card}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"kernels": kernels}))

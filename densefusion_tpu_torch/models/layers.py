@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from densefusion_tpu_torch.ops.phase_conv import conv3x3_valid_nchw
+
 # 1-D tap->source weights of the half-pixel 2x bilinear upsample, per output
 # parity: rows = conv taps (y-1, y, y+1) of output pixel y, cols = half-res
 # sources (k-1, k, k+1) where k = y // 2. Even y = 2k: up[2k] =
@@ -48,49 +50,115 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[:, None], w, 0.0).astype(np.float32)
 
 
-def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """NCHW bilinear resize with ``jax.image.resize``'s semantics: the
+def _align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of the ``align_corners=True`` bilinear resize
+    along one axis: source coordinate ``i * (n_in-1)/(n_out-1)``, rounded in
+    float32 as the JAX package rounds it (a size of 1 maps everything to
+    source 0, as torch does)."""
+    m = np.zeros((n_out, n_in), np.float32)
+    if n_in == 1 or n_out == 1:
+        m[:, 0] = 1.0
+        return m
+    src = np.arange(n_out, dtype=np.float32) * np.float32(
+        (n_in - 1) / (n_out - 1))
+    i0 = np.clip(np.floor(src).astype(np.int64), 0, n_in - 2)
+    frac = src - i0.astype(np.float32)
+    rows = np.arange(n_out)
+    np.add.at(m, (rows, i0), 1.0 - frac)
+    np.add.at(m, (rows, i0 + 1), frac)
+    return m
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """NCHW bilinear resize, applied as two 1-D weight-matrix contractions.
+    ``align_corners=False`` has ``jax.image.resize``'s semantics: the
     half-pixel convention (``F.interpolate(align_corners=False)`` when
-    upsampling) and an antialiasing filter when downsampling. Applied as two
-    1-D weight-matrix contractions."""
+    upsampling) and an antialiasing filter when downsampling; the PSP priors
+    use it. ``align_corners=True`` is the reference decoder's
+    ``nn.Upsample(..., align_corners=True)``, which imported reference
+    weights need to reproduce the reference's activations."""
     h, w = x.shape[-2], x.shape[-1]
     if (h, w) == tuple(out_hw):
         return x
-    mh = x.new_tensor(_resize_weights(h, out_hw[0]))
-    mw = x.new_tensor(_resize_weights(w, out_hw[1]))
+    weights = _align_corners_matrix if align_corners else _resize_weights
+    mh = x.new_tensor(weights(h, out_hw[0]))
+    mw = x.new_tensor(weights(w, out_hw[1]))
     return torch.einsum("oh,...hw,pw->...op", mh, x, mw)
 
 
 def phase_conv_weight(weight: torch.Tensor) -> torch.Tensor:
     """Compose a 3x3 conv weight (Cout, Cin, 3, 3) with the 2x half-pixel
-    upsample into the four phase kernels (4*Cout, Cin, 3, 3): output channel
-    ``(py*2 + px)*Cout + d`` holds ``K[py,px] = M_py^T W M_px`` for full-res
-    pixel parity (py, px)."""
+    upsample into the four phase kernels, HWIO (3, 3, Cin, 4*Cout): output
+    channel ``(py*2 + px)*Cout + d`` holds ``K[py,px] = M_py^T W M_px`` for
+    full-res pixel parity (py, px)."""
     m = weight.new_tensor([UPSAMPLE_TAPS_EVEN, UPSAMPLE_TAPS_ODD])
     cout, cin = weight.shape[:2]
-    pk = torch.einsum("pti,quj,dctu->pqdcij", m, m, weight)
-    return pk.reshape(4 * cout, cin, 3, 3)
+    pk = torch.einsum("pti,quj,dctu->ijcpqd", m, m, weight)
+    return pk.reshape(3, 3, cin, 4 * cout)
 
 
 def phase_conv_phases(x: torch.Tensor, weight: torch.Tensor,
-                      bias: torch.Tensor) -> torch.Tensor:
-    """Phase-major intermediate of :func:`phase_upsample_conv3x3`: one
-    half-res conv of the replicate-padded input with the four composed phase
-    kernels. x (B, Cin, h, w) -> (B, 4*Cout, h, w); full-res pixel
-    (2i+py, 2j+px), channel d lives at [:, (py*2+px)*Cout + d, i, j]."""
+                      bias: torch.Tensor,
+                      conv_backend: str = "auto") -> torch.Tensor:
+    """Phase-major intermediate of :func:`phase_upsample_conv3x3` (replicate
+    border): one half-res VALID conv of the replicate-padded input with the
+    four composed phase kernels. x (B, Cin, h, w) -> (B, 4*Cout, h, w);
+    full-res pixel (2i+py, 2j+px), channel d lives at
+    [:, (py*2+px)*Cout + d, i, j]. ``conv_backend`` picks the convolution's
+    route (:func:`densefusion_tpu_torch.ops.phase_conv.conv3x3_valid`):
+    "kernel" is ``csrc/phase_conv.cu``, "library" and "auto" ``F.conv2d``."""
     xp = F.pad(x, (1, 1, 1, 1), mode="replicate")
-    return F.conv2d(xp, phase_conv_weight(weight), bias.repeat(4))
+    y = conv3x3_valid_nchw(xp, phase_conv_weight(weight), conv_backend)
+    return y + bias.repeat(4)[:, None, None]
+
+
+def _edge_upsample_1d(v: torch.Tensor) -> torch.Tensor:
+    """Extended 2x half-pixel upsample along the last axis: length n ->
+    2n + 2, covering upsampled coordinates -1 .. 2n (one phantom sample each
+    side, edge-clamped): the boundary helper of the zero border."""
+    vp = torch.cat([v[..., :1], v, v[..., -1:]], dim=-1)     # n + 2
+    even = 0.25 * vp[..., :-1] + 0.75 * vp[..., 1:]          # 0, 2, .., 2n
+    odd = 0.75 * vp[..., :-1] + 0.25 * vp[..., 1:]           # -1, 1, .., 2n-1
+    return torch.stack([odd, even], dim=-1).flatten(-2)      # -1 .. 2n
 
 
 def phase_upsample_conv3x3(x: torch.Tensor, weight: torch.Tensor,
-                           bias: torch.Tensor) -> torch.Tensor:
-    """``conv3x3(replicate_pad(upsample2x_half_pixel(x)))`` computed as one
-    half-res phase convolution plus a depth-to-space interleave; the
-    upsampled map is never formed. x (B, Cin, h, w) -> (B, Cout, 2h, 2w)."""
+                           bias: torch.Tensor, border: str = "zero",
+                           conv_backend: str = "auto") -> torch.Tensor:
+    """``conv3x3(pad(upsample2x_half_pixel(x)))`` computed as one half-res
+    phase convolution plus a depth-to-space interleave; the upsampled map is
+    never formed. x (B, Cin, h, w) -> (B, Cout, 2h, 2w).
+
+    ``border="replicate"`` is the phase formulation's native border (the
+    uniform formula over an edge-padded input is a replicate-padded conv).
+    ``border="zero"`` reproduces zero conv padding exactly by subtracting
+    the phantom border taps' contributions from the outermost ring, the
+    corner taps counted once (``densefusion_tpu/models/layers.py:143-180``)."""
+    if border not in ("zero", "replicate"):
+        raise ValueError(f"unknown border {border!r}")
     b, _, h, w = x.shape
     cout = weight.shape[0]
-    y = phase_conv_phases(x, weight, bias).reshape(b, 2, 2, cout, h, w)
-    return y.permute(0, 3, 4, 1, 5, 2).reshape(b, cout, 2 * h, 2 * w)
+    y = phase_conv_phases(x, weight, bias, conv_backend)
+    y = y.reshape(b, 2, 2, cout, h, w).permute(0, 3, 4, 1, 5, 2)
+    y = y.reshape(b, cout, 2 * h, 2 * w)
+    if border == "replicate":
+        return y
+    # each ring correction is a VALID 1-D conv of the clamped upsampled
+    # border line with one row (or column) of taps
+    corr_top = F.conv1d(_edge_upsample_1d(x[:, :, 0]), weight[:, :, 0])
+    corr_bot = F.conv1d(_edge_upsample_1d(x[:, :, -1]), weight[:, :, 2])
+    corr_left = F.conv1d(_edge_upsample_1d(x[..., 0]), weight[..., 0])
+    corr_right = F.conv1d(_edge_upsample_1d(x[..., -1]), weight[..., 2])
+    # a corner tap lies in one row and one column correction: take it out of
+    # the column vectors so it is subtracted once
+    for corr, col, kw in ((corr_left, 0, 0), (corr_right, -1, 2)):
+        corr[..., 0] -= x[:, :, 0, col] @ weight[:, :, 0, kw].t()
+        corr[..., -1] -= x[:, :, -1, col] @ weight[:, :, 2, kw].t()
+    y = torch.cat([y[..., :1] - corr_left[..., None], y[..., 1:-1],
+                   y[..., -1:] - corr_right[..., None]], dim=-1)
+    return torch.cat([y[:, :, :1] - corr_top[:, :, None], y[:, :, 1:-1],
+                      y[:, :, -1:] - corr_bot[:, :, None]], dim=2)
 
 
 class Dropout2d(nn.Module):

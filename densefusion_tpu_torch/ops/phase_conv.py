@@ -1,0 +1,171 @@
+"""The decoder's 3x3 VALID convolution of a pre-padded map.
+
+Counterpart of ``densefusion_tpu/ops/phase_conv.py``. Its TPU kernel,
+``_conv_kernel`` (``densefusion_tpu/ops/phase_conv.py:72``), becomes the
+hand-written Hopper kernel ``csrc/phase_conv.cu`` (wrapper
+:data:`phase_conv_kernel`): nine shifted products in flat spatial space into
+one float32 sum, the two phantom columns per row never stored.
+
+Three routes compute the same function:
+
+- the library convolution, ``F.conv2d`` (the JAX package's
+  ``conv3x3_valid_xla``, which leaves it to XLA);
+- the kernel's own arithmetic in plain PyTorch (:func:`conv3x3_valid_plain`),
+  which the CPU tests use and ``chip_smoke.py`` holds the kernel to;
+- the kernel, through an autograd Function whose forward launches it on
+  CUDA tensors (the plain version on CPU tensors) and whose backward is the
+  library convolution's, as the JAX package's backward is XLA's
+  (``_conv3x3_bwd``). A CUDA tensor launches the kernel or raises.
+
+The public :func:`conv3x3_valid` keeps the JAX package's NHWC / HWIO
+signature; the port's NCHW decoder calls :func:`conv3x3_valid_nchw`, which
+pays no transpose. float32 only on the kernel route.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from densefusion_tpu_torch.ops import build
+
+BACKENDS = ("auto", "library", "kernel")
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def _library_nchw(xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
+    """``F.conv2d`` of the padded NCHW map with the HWIO kernel, VALID."""
+    return F.conv2d(xp, pk.permute(3, 2, 0, 1))
+
+
+def conv3x3_valid_plain_nchw(xp: torch.Tensor,
+                             pk: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel: xp (B, Cin, h+2, w+2), pk (3, 3, Cin,
+    Cout) -> (B, Cout, h, w). Nine shifted matmuls over the flat map into
+    one sum, ``out_flat[p] = sum_{kh,kw} pk[kh,kw]^T xp_flat[p + kh*(w+2) +
+    kw]``, then the phantom columns dropped. The flat range stops two short
+    of ``h*(w+2)`` (the last row's phantoms), so no tap reads past the map."""
+    b, cin, hp, wp = xp.shape
+    h, w = hp - 2, wp - 2
+    n = h * wp - 2
+    xf = xp.reshape(b, cin, hp * wp)
+    acc = None
+    for kh in range(3):
+        for kw in range(3):
+            off = kh * wp + kw
+            part = torch.matmul(pk[kh, kw].t(), xf[:, :, off:off + n])
+            acc = part if acc is None else acc + part
+    acc = F.pad(acc, (0, 2))
+    return acc.reshape(b, pk.shape[-1], h, wp)[..., :w]
+
+
+def conv3x3_valid_plain(xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
+    """:func:`conv3x3_valid_plain_nchw` on an NHWC map: xp (B, h+2, w+2,
+    Cin), pk (3, 3, Cin, Cout) -> (B, h, w, Cout)."""
+    return _nhwc(conv3x3_valid_plain_nchw(_nchw(xp), pk))
+
+
+def conv3x3_valid_library(xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
+    """``F.conv2d`` of an NHWC map, VALID: xp (B, h+2, w+2, Cin), pk (3, 3,
+    Cin, Cout) -> (B, h, w, Cout); the counterpart of ``conv3x3_valid_xla``."""
+    return _nhwc(_library_nchw(_nchw(xp), pk))
+
+
+class PhaseConvKernel(build.Kernel):
+    """ctypes wrapper of ``csrc/phase_conv.cu``."""
+
+    def __init__(self):
+        super().__init__("phase_conv", "phase_conv", "phase_conv_launch",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5)
+
+    def __call__(self, xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
+        """xp (B, Cin, h+2, w+2) and pk (3, 3, Cin, Cout), contiguous float32
+        CUDA tensors on one device -> (B, Cout, h, w) float32."""
+        for name, t in (("xp", xp), ("pk", pk)):
+            if t.dtype != torch.float32 or not t.is_contiguous() \
+                    or t.dim() != 4:
+                raise ValueError(f"{self.name} kernel: {name} must be a "
+                                 "contiguous float32 rank-4 tensor, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+        bsz, cin, hp, wp = xp.shape
+        cout = pk.shape[-1]
+        if pk.shape[:3] != (3, 3, cin) or hp < 3 or wp < 3 or cout < 1 \
+                or cin < 1 or not 1 <= bsz <= 65535 \
+                or cin * hp * wp >= 2 ** 31:
+            raise ValueError(f"{self.name} kernel: need xp (B, Cin, h+2, w+2) "
+                             "with h, w, Cin >= 1, 1 <= B <= 65535, Cin*(h+2)"
+                             "*(w+2) < 2^31 and pk (3, 3, Cin, Cout), got "
+                             f"{tuple(xp.shape)} and {tuple(pk.shape)}")
+        dev = build.cuda_device(self.name, xp, pk)
+        out = torch.empty((bsz, cout, hp - 2, wp - 2), dtype=torch.float32,
+                          device=dev)
+        self.launch(dev, xp.data_ptr(), pk.data_ptr(), out.data_ptr(), bsz,
+                    cin, cout, hp - 2, wp - 2)
+        return out
+
+
+phase_conv_kernel = PhaseConvKernel()
+
+
+class KernelConv3x3(torch.autograd.Function):
+    """The kernel route: forward is the kernel on CUDA tensors and its plain
+    version on CPU tensors; backward is the library convolution's input and
+    weight gradients on the same tensors, so they equal the library route's
+    (``_conv3x3_bwd``, ``densefusion_tpu/ops/phase_conv.py:156``)."""
+
+    @staticmethod
+    def forward(ctx, xp, pk):
+        ctx.save_for_backward(xp, pk)
+        if xp.device.type == "cpu":
+            return conv3x3_valid_plain_nchw(xp, pk)
+        return phase_conv_kernel(xp.contiguous(), pk.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, pk = ctx.saved_tensors
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            g, xp, pk.permute(3, 2, 0, 1), None, [1, 1], [0, 0], [1, 1],
+            False, [0, 0], 1,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, (None if gw is None else gw.permute(2, 3, 1, 0))
+
+
+def conv3x3_valid_nchw(xp: torch.Tensor, pk: torch.Tensor,
+                       backend: str = "auto") -> torch.Tensor:
+    """:func:`conv3x3_valid` on an NCHW map: xp (B, Cin, h+2, w+2), pk (3, 3,
+    Cin, Cout) HWIO -> (B, Cout, h, w)."""
+    if backend == "kernel":
+        return KernelConv3x3.apply(xp, pk)
+    if backend in ("auto", "library"):
+        return _library_nchw(xp, pk)
+    raise ValueError(f"unknown conv backend {backend!r}; one of {BACKENDS}")
+
+
+def conv3x3_valid(xp: torch.Tensor, pk: torch.Tensor,
+                  backend: str = "auto") -> torch.Tensor:
+    """VALID 3x3 convolution of a pre-padded NHWC map.
+
+    xp (B, h+2, w+2, Cin), already padded by 1 (edge or zero); pk (3, 3,
+    Cin, Cout) HWIO -> (B, h, w, Cout), differentiable in both. The backend
+    names map onto the JAX package's:
+
+    ==========  =========  ===============================================
+    port        JAX        route
+    ==========  =========  ===============================================
+    "auto"      "auto"     the library convolution (``F.conv2d``)
+    "library"   "xla"      the library convolution
+    "kernel"    "pallas"   :class:`KernelConv3x3`: ``csrc/phase_conv.cu`` on
+                           CUDA tensors, its plain version on CPU tensors;
+                           the library's backward
+    ==========  =========  ===============================================
+    """
+    return _nhwc(conv3x3_valid_nchw(_nchw(xp), pk, backend))

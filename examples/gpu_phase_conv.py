@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""Kernel 6 (``csrc/phase_conv.cu``) against the library convolution at the
+decoder's three half-res phase-conv shapes (B=64, float32, TF32 off), and
+the whole ``phase_upsample_conv3x3`` stages under both conv backends: the
+counterpart of ``examples/tpu_up1_pallas.py``.
+
+    python3 examples/gpu_phase_conv.py [out.json]
+
+Shapes (``chip_smoke.DECODER_CONVS``, 192 px crops):
+
+    up1:  24x24 x1024 -> 1024 (4 phases x 256)
+    up2:  48x48 x 256 ->  256 (4 phases x 64)
+    up3:  96x96 x  64 ->  256 (4 phases x 64)
+
+Each pair is timed in turns (library, kernel, kernel, library) with CUDA
+events over back-to-back calls after a warm-up, on one card, so the two are
+compared within one process. Beside each: the kernel's bound
+(``chip_smoke.conv_bound_ms``) and the largest difference between the two
+outputs, relative to the largest output. Prints one JSON object and, given
+a path, writes it there.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from densefusion_tpu_torch.models.layers import (  # noqa: E402
+    phase_upsample_conv3x3,
+)
+from densefusion_tpu_torch.ops import phase_conv  # noqa: E402
+
+
+def in_turns(first, second, iters: int) -> dict:
+    """Mean ms of ``first`` and ``second`` over ``iters`` calls each, timed
+    first, second, second, first; each reading and the two means."""
+    runs = [cs.cuda_ms(fn, iters=iters, warmup=2)
+            for fn in (first, second, second, first)]
+    return {"readings_ms": runs, "first_ms": (runs[0] + runs[3]) / 2,
+            "second_ms": (runs[1] + runs[2]) / 2}
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    from densefusion_tpu_torch.device import precision_policy, resolve_device
+    dev = resolve_device("cuda")
+    gen = torch.Generator("cuda").manual_seed(cs.SEED)
+    b = cs.BATCH
+    result = {"card": cs.card_line(), "precision": precision_policy(),
+              "batch": b, "conv": {}, "stage": {}}
+    for name, hw, cin, cout in cs.DECODER_CONVS:
+        xp = torch.randn((b, cin, hw + 2, hw + 2), device=dev, generator=gen)
+        pk = torch.randn((3, 3, cin, cout), device=dev,
+                         generator=gen) / np.sqrt(9 * cin)
+        w_oihw = pk.permute(3, 2, 0, 1).contiguous()
+        t = in_turns(lambda: F.conv2d(xp, w_oihw),
+                     lambda: phase_conv.phase_conv_kernel(xp, pk), iters=10)
+        bound, by = cs.conv_bound_ms(b, hw, hw, cin, cout)
+        result["conv"][name] = {
+            "shape": f"B={b}, {hw}x{hw}, {cin} -> {cout}",
+            "library_ms": t["first_ms"], "kernel_ms": t["second_ms"],
+            "readings_ms": t["readings_ms"], "bound_ms": bound,
+            "bound_by": by, "kernel_over_bound": t["second_ms"] / bound,
+            "kernel_over_library": t["second_ms"] / t["first_ms"],
+            "rel_diff": rel_diff(phase_conv.phase_conv_kernel(xp, pk),
+                                 F.conv2d(xp, w_oihw))}
+
+        # the whole stage (replicate border), one quarter the phase channels
+        x = torch.randn((b, cin, hw, hw), device=dev, generator=gen)
+        k = torch.randn((cout // 4, cin, 3, 3), device=dev,
+                        generator=gen) / np.sqrt(9 * cin)
+        bias = 0.1 * torch.randn((cout // 4,), device=dev, generator=gen)
+
+        def stage(backend):
+            return phase_upsample_conv3x3(x, k, bias, border="replicate",
+                                          conv_backend=backend)
+
+        t = in_turns(lambda: stage("library"), lambda: stage("kernel"),
+                     iters=10)
+        result["stage"][name] = {
+            "shape": f"B={b}, {hw}x{hw}, {cin} -> {cout // 4} at "
+                     f"{2 * hw}x{2 * hw}",
+            "library_ms": t["first_ms"], "kernel_ms": t["second_ms"],
+            "readings_ms": t["readings_ms"],
+            "rel_diff": rel_diff(stage("kernel"), stage("library"))}
+    text = json.dumps(result, indent=1)
+    print(text)
+    if len(sys.argv) > 1:
+        Path(sys.argv[1]).parent.mkdir(parents=True, exist_ok=True)
+        Path(sys.argv[1]).write_text(text)
+
+
+if __name__ == "__main__":
+    main()

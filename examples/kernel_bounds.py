@@ -8,8 +8,8 @@ Pure arithmetic, no card needed. A bound is the larger of the operations
 over the card's peak rate for their type and the bytes (each input read
 once, each output written once) over its memory rate; the rates are the
 data-sheet peaks ``chip_smoke.py`` uses (67 TFLOP/s fp32 outside the tensor
-cores, 3.35 TB/s). The ported kernels' bounds come from ``chip_smoke.py``'s
-own functions, which it also reports beside their measured times.
+cores, 3.35 TB/s). The bounds come from ``chip_smoke.py``'s own functions,
+which it also reports beside their measured times.
 """
 
 from __future__ import annotations
@@ -21,22 +21,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
-
-
-def _bound(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / cs.PEAK_FP32_FLOPS, nbytes / cs.PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), \
-        ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def conv3x3_bound_ms(bsz: int, h: int, w: int, cin: int,
-                     cout: int) -> tuple[float, str]:
-    """3x3 VALID conv of a (B, h+2, w+2, Cin) padded map in float32 (the
-    port's precision policy): 2 operations per multiply-add; the padded
-    input, the weights and the (B, h, w, Cout) output moved once."""
-    return _bound(2 * bsz * h * w * 9 * cin * cout,
-                  4 * (bsz * (h + 2) * (w + 2) * cin + 9 * cin * cout
-                       + bsz * h * w * cout))
 
 
 def main() -> None:
@@ -52,9 +36,10 @@ def main() -> None:
          f"Q={n * m}, R={m}", cs.nn_bound_ms(cs.TRAIN_SYM_ROWS, n * m, m)),
         ("5 _remap_kernel_bt", "B=64, Q=R=500 (the scoring shape)",
          cs.remap_bound_ms(cs.BATCH, cs.NUM_MESH, cs.NUM_MESH, cs.BATCH)),
-        ("6 _conv_kernel", "up1's phase conv, B=64, 24x24, 1024 -> 4*256, "
-         "float32", conv3x3_bound_ms(cs.BATCH, 24, 24, 1024, 1024)),
-    ]
+    ] + [("6 _conv_kernel", f"{name}'s phase conv, B={cs.BATCH}, "
+          f"{hw}x{hw}, {cin} -> {cout}, float32",
+          cs.conv_bound_ms(cs.BATCH, hw, hw, cin, cout))
+         for name, hw, cin, cout in cs.DECODER_CONVS]
     for kernel, shape, (ms, by) in rows:
         print(json.dumps({"kernel": kernel, "shape": shape, "bound_ms": ms,
                           "bound_by": by}))

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from densefusion_tpu_torch.ops import add_dist, knn
+from densefusion_tpu_torch.ops import add_dist, knn, phase_conv
 
 
 def _cuda():
@@ -80,3 +80,18 @@ def test_nn_kernels_match_plain():
 
     worst = chip_smoke.check_nn(knn, np.random.default_rng(3))
     assert worst == {"nn": 0.0, "nn_batched": 0.0}
+
+
+@pytest.mark.cuda
+def test_phase_conv_kernel_matches_plain():
+    """Kernel 6 against its plain version with ``chip_smoke.py``'s cases
+    (the decoder's three phase convolutions at B=64, the JAX test's ragged
+    shapes, B=1) within 1e-4 of the largest element, and the kernel route's
+    gradients equal to the library route's."""
+    _cuda()
+    import chip_smoke
+
+    before = phase_conv.phase_conv_kernel.launches
+    worst = chip_smoke.check_phase_conv(phase_conv, np.random.default_rng(4))
+    assert np.isfinite(worst)
+    assert phase_conv.phase_conv_kernel.launches > before

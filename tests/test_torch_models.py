@@ -1,4 +1,5 @@
-"""Port parity: layers, DilatedResNet, PSPNet (sparse decode), PoseNet and
+"""Port parity: layers, DilatedResNet, PSPNet (the fused decoder, sparse and
+dense; the other decoders are in ``test_torch_decoders.py``), PoseNet and
 PoseRefineNet against their flax modules with the same weights, carried by
 ``densefusion_tpu_torch.compat`` (itself checked key for key against
 ``densefusion_tpu.compat``).
@@ -84,7 +85,7 @@ def test_phase_upsample_conv3x3_replicate(rng, h, w):
                                           jnp.asarray(b), border="replicate")
     got = layers.phase_upsample_conv3x3(
         _nchw(x), torch.from_numpy(k.transpose(3, 2, 0, 1).copy()),
-        torch.from_numpy(b))
+        torch.from_numpy(b), border="replicate")
     np.testing.assert_allclose(_nhwc(got), np.asarray(want), **TOL)
 
 
@@ -143,13 +144,6 @@ def test_pspnet_sparse_decode(pose):
     np.testing.assert_allclose(
         to_np(dense), np.asarray(JPSPNet().apply(cnn, jnp.asarray(img))),
         **TOL)
-
-
-def test_other_decoders_not_ported():
-    with pytest.raises(NotImplementedError):
-        PoseNet(NUM_OBJ, align_corners=True)
-    with pytest.raises(NotImplementedError):
-        PoseNet(NUM_OBJ, fused_decoder=False)
 
 
 def test_posenet(pose):

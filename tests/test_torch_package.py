@@ -16,7 +16,7 @@ from densefusion_tpu_torch.device import resolve_device
 from densefusion_tpu_torch.eval import InferencePipeline
 from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
 from densefusion_tpu_torch.cli.benchmark import bench_knn
-from densefusion_tpu_torch.ops import add_dist, knn
+from densefusion_tpu_torch.ops import add_dist, knn, phase_conv
 from densefusion_tpu_torch.parallel import initialize_distributed, make_mesh
 from densefusion_tpu_torch.serve import PoseEstimator
 from densefusion_tpu_torch.train import create_train_state
@@ -47,6 +47,10 @@ def _probe(extra: str = "") -> list:
 
 @pytest.mark.parametrize("extra", [
     "",
+    # the decoder's kernel route and the decoders that reach it
+    "from densefusion_tpu_torch.ops.phase_conv import conv3x3_valid\n"
+    "from densefusion_tpu_torch.models import PoseNet\n"
+    "PoseNet(2, fused_decoder=False); PoseNet(2, align_corners=True)",
     # chip_smoke.py's imports, without running it
     "import importlib.util as u\n"
     "spec = u.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
@@ -63,6 +67,21 @@ def test_chip_smoke_fails_without_cuda():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """A copy of ``chip_smoke.py`` in a directory that holds nothing else of
+    the repository exits 1 with no result: it cannot import the port from
+    its own checkout. (This is the exit 1 of a run of the script alone; the
+    script in its checkout exits 0 on the card when every check passes.)"""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_bytes((ROOT / "chip_smoke.py").read_bytes())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 1
+    assert '"ok"' not in out.stdout
+    assert "checkout" in out.stderr
 
 
 def test_no_device_means_cuda_or_raise():
@@ -113,6 +132,17 @@ def test_nn_kernels_have_no_cpu_fallback(kernel):
     x = torch.zeros((1, 4, 3) if kernel.batched else (4, 3))
     with pytest.raises(ValueError):
         kernel(x, x)
+    assert kernel.launches == before
+
+
+def test_phase_conv_kernel_has_no_cpu_fallback():
+    """The kernel route reaches the kernel wrapper only for CUDA tensors;
+    the wrapper itself refuses CPU tensors instead of computing the plain
+    version, and the launch count stays unchanged."""
+    kernel = phase_conv.phase_conv_kernel
+    before = kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(torch.zeros((1, 2, 5, 5)), torch.zeros((3, 3, 2, 4)))
     assert kernel.launches == before
 
 
