@@ -20,8 +20,9 @@ fails. Phases, in order:
    3c. the 1-NN kernels (rank 2 and batched) at the ``bench_knn`` shape,
    the phase-1 ADD-S shape, ragged shapes, exact ties and sentinel-padded
    refs: indices equal, distances bit-identical;
-   3d. the decoder's phase-conv kernel (kernel 6) at the decoder's three
-   phase-conv shapes at B=64, the JAX kernel test's ragged shapes and B=1,
+   3d. the decoder's phase-conv kernel (kernel 6, 3xTF32 on the tensor
+   cores) at the decoder's three phase-conv shapes at B=64, the JAX kernel
+   test's ragged shapes, B=1, and two cases at the edges of its tiles,
    within 1e-4 of the plain output's largest element, and its autograd
    route's gradients against the library convolution's;
 4. the serving path at the YCB width (21 objects, N=1000 points, 192 px
@@ -30,11 +31,13 @@ fails. Phases, in order:
    ``densefusion_tpu_torch.compat``): ``estimate_frame``
    requests on 480x640 RGB-D frames, ``estimate_batch`` at B=64, and
    ``pose_distances`` on the result, with every kernel's launch count
-   reset just before and read just after;
+   reset just before and read just after (the remap kernel, and kernel 6,
+   which ``"auto"`` takes on the card for the fused decoder's three phase
+   convolutions);
    4b. the training path at the YCB width: ``create_train_state``, three
    phase-1 steps at B=32, M=500 (ADD-S on 8 rows), then three phase-2
    steps at B=32, M=2600, K=2, each step's launch counts reset before it
-   and read after it;
+   and read after it (kernel 6: 3 per step, the PoseNet forward);
    4c. the search path: the KNN benchmark CLI in-process, ``knn(k=1)`` at
    the phase-1 ADD-S shape, and on a one-rank NCCL mesh the sharded and
    ring searches and the hypothesis-sharded distance with its gradient,
@@ -54,7 +57,8 @@ fails. Phases, in order:
 6. timings: pose frames/s at B=64 under each decoder, the phase-1 and
    phase-2 step times at B=32, and each kernel's, its plain version's and
    the build's time (for the 1-NN kernels also ``torch.cdist(q, r)
-   .min(-1)``'s, for kernel 6 at its three shapes ``F.conv2d``'s);
+   .min(-1)``'s; for kernel 6 at its three shapes ``F.conv2d``'s, timed in
+   turns with it, and both its bounds, 3xTF32 and FFMA);
 7. a JSON line listing every ported kernel (``kernels``), with its launch
    count on the path that ported it (``launches``) and on each path
    (``launches_by_path``);
@@ -90,8 +94,10 @@ DECODER_CONVS = (("up1", CROP // 8, 1024, 4 * 256),
 # the decoders besides the default fused one, as PoseNet arguments
 OTHER_DECODERS = {"dense zero-border": {"fused_decoder": False},
                   "align-corners": {"align_corners": True}}
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
+# TF32 on the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -460,7 +466,11 @@ def conv_cases(rng):
     """Phase 3d's inputs: (name, xp (B, Cin, h+2, w+2), pk (3, 3, Cin,
     Cout)) as numpy float32: the decoder's three phase convolutions at
     B=64, the ragged shapes of the JAX kernel's test
-    (``tests/test_phase_conv.py``) and B=1 at up1."""
+    (``tests/test_phase_conv.py``), B=1 at up1, and two at the edges of the
+    kernel's tiles: a map whose h*(w+2) = 77 fills part of one position
+    tile, with a channel length of 99 floats (not 16-byte aligned) and Cin
+    12 (not a multiple of the MMA depth 8); and Cin 1100, so that the copy
+    ring laps many times and ends on a partial channel chunk."""
     def case(name, b, h, w, cin, cout):
         return (f"{name} (B={b}, {h}x{w}, {cin} -> {cout})",
                 rng.standard_normal((b, cin, h + 2, w + 2)).astype(np.float32),
@@ -473,18 +483,21 @@ def conv_cases(rng):
             + [case("ragged Cin 130, Cout 5", 2, 12, 10, 130, 5),
                case("ragged 5x7 map, Cin 3, Cout 9", 1, 5, 7, 3, 9),
                case("ragged Cout 96", 1, 24, 24, 64, 96),
-               case("up1 at B=1", 1, hw1, hw1, cin1, cout1)])
+               case("up1 at B=1", 1, hw1, hw1, cin1, cout1),
+               case("ragged 7x9 map, Cin 12, Cout 40", 2, 7, 9, 12, 40),
+               case("Cin 1100 (ring laps, K tail)", 1, 6, 6, 1100, 24)])
 
 
-def check_phase_conv(phase_conv, rng) -> float:
+def check_phase_conv(phase_conv, rng) -> tuple[float, float]:
     """Phase 3d: kernel 6 against its plain version on every case of
     :func:`conv_cases`, within 1e-4 of the plain output's largest element
     (the JAX package's on-chip parity bound, ``bench.py:92-103``); then the
     kernel route's input and weight gradients against the library route's,
     within 1e-6 of their largest element (both are the library's backward).
-    Returns the largest absolute error of the forward checks."""
+    Returns the largest absolute error of the forward checks and the
+    largest as a share of the plain output's largest element."""
     dev = torch.device("cuda")
-    worst = 0.0
+    worst, worst_rel = 0.0, 0.0
     cases = conv_cases(rng)
     for name, xp, pk in cases:
         xp, pk = torch.from_numpy(xp).to(dev), torch.from_numpy(pk).to(dev)
@@ -496,7 +509,7 @@ def check_phase_conv(phase_conv, rng) -> float:
         if got.shape != want.shape or not err <= 1e-4 * scale:
             raise AssertionError(f"phase_conv kernel differs from plain on "
                                  f"{name}: {err} against max {scale}")
-        worst = max(worst, err)
+        worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
         log(f"  phase_conv kernel == plain on {name}: max abs err {err:.3g} "
             f"({err / scale:.3g} of the largest)")
     for name, xp, pk in (cases[3], cases[1]):   # ragged Cin 130, up2
@@ -520,7 +533,7 @@ def check_phase_conv(phase_conv, rng) -> float:
                                      f"from the library's on {name}: {rel}")
         log(f"  phase_conv kernel route gradients == library's on {name} "
             "(B=8 at most)")
-    return worst
+    return worst, worst_rel
 
 
 def decoder_path(est, samples, phase_conv) -> dict:
@@ -759,32 +772,36 @@ def _moved(module, before) -> bool:
                for p, b in zip(module.parameters(), before))
 
 
-def train_path(add_dist, rng):
+def train_path(add_dist, phase_conv, rng):
     """Phase 4b: ``create_train_state``, then three phase-1 steps at B=32,
     M=500 and three phase-2 steps at B=32, M=2600, K=2. Each
     step's kernel launch counts are reset before it and read after it:
     phase 1 must launch the paired and the min kernel, phase 2 the paired
     kernel 3 times (the main loss and 2 refiner iterations) and the min
-    kernel twice. Every step's loss and gradients must be finite and its
-    parameters must move. Returns (state, batches, launch totals)."""
+    kernel twice; both phases' PoseNet forward launches kernel 6 once per
+    phase convolution (up1, up2, up3). Every step's loss and gradients must
+    be finite and its parameters must move. Returns (state, batches, launch
+    totals)."""
     from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
     from densefusion_tpu_torch.train import (
         create_train_state, make_pose_train_step, make_refine_train_step,
     )
 
     kernels = {"add_dist_paired": add_dist.paired_kernel,
-               "add_dist_min": add_dist.min_kernel}
+               "add_dist_min": add_dist.min_kernel,
+               "phase_conv": phase_conv.phase_conv_kernel}
     totals = dict.fromkeys(kernels, 0)
     state = create_train_state(PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ), LR,
                                SEED)
     b1 = train_batch(rng, TRAIN_BATCH, NUM_MESH)
     b2 = train_batch(rng, TRAIN_BATCH, REFINE_MESH)
+    # exact launches per step where the count is fixed; at least 1 elsewhere
     for phase, make_step, batch, module, want in (
             (1, lambda: make_pose_train_step(state, use_adds=True), b1,
-             state.posenet, None),
+             state.posenet, {"phase_conv": 3}),
             (2, lambda: make_refine_train_step(state, REFINE_ITERS), b2,
              state.refiner, {"add_dist_paired": 1 + REFINE_ITERS,
-                             "add_dist_min": REFINE_ITERS})):
+                             "add_dist_min": REFINE_ITERS, "phase_conv": 3})):
         step = make_step()   # the phase switch: a fresh Adam
         losses = []
         for i in range(TRAIN_STEPS):
@@ -796,10 +813,10 @@ def train_path(add_dist, rng):
             got = {name: k.launches for name, k in kernels.items()}
             for name, n in got.items():
                 totals[name] += n
-                if n < 1 or (want is not None and n != want[name]):
+                if n < 1 or n != want.get(name, n):
                     raise AssertionError(
                         f"phase-{phase} step {i}: launches {got}, expected "
-                        f"{want or 'at least 1 each'}")
+                        f"{want} and at least 1 each")
             loss = float(metrics["loss"])
             if not (np.isfinite(loss) and np.isfinite(float(metrics["dis"]))
                     and _finite_grads(module)):
@@ -994,15 +1011,26 @@ def add_dist_bound_ms(bsz, n, m, active_rows,
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def conv_bound_ms(bsz, h, w, cin, cout) -> tuple[float, str]:
+def conv_bound_ms(bsz, h, w, cin, cout,
+                  arithmetic: str = "3xtf32") -> tuple[float, str]:
     """Least time for kernel 6's work: a 3x3 VALID conv of a (B, Cin, h+2,
-    w+2) padded map in float32 (the port's precision policy), 2 operations
-    per multiply-add over the h x w outputs (not the phantom columns); the
-    padded input, the weights and the (B, Cout, h, w) output moved once."""
+    w+2) padded map to float32 accuracy (the port's precision policy), 2
+    operations per multiply-add over the h x w outputs (not the phantom
+    columns); the padded input, the weights and the (B, Cout, h, w) output
+    moved once. ``arithmetic`` is the route's: "3xtf32", the kernel's three
+    TF32 tensor-core products per product at ``PEAK_TF32_FLOPS``, or
+    "ffma", one float32 FMA outside the tensor cores at
+    ``PEAK_FP32_FLOPS``."""
     ops = 2 * 9 * bsz * h * w * cin * cout
     nbytes = 4 * (bsz * (h + 2) * (w + 2) * cin + 9 * cin * cout
                   + bsz * h * w * cout)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    if arithmetic == "3xtf32":
+        t_ops = 3 * ops / PEAK_TF32_FLOPS
+    elif arithmetic == "ffma":
+        t_ops = ops / PEAK_FP32_FLOPS
+    else:
+        raise ValueError(f"unknown arithmetic {arithmetic!r}")
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), \
         ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -1063,7 +1091,7 @@ def run() -> None:
     log("[3c] the 1-NN kernels against their plain versions")
     max_err.update(check_nn(knn, np.random.default_rng(SEED + 5)))
     log("[3d] kernel 6 (phase_conv) against its plain version")
-    max_err["phase_conv"] = check_phase_conv(
+    max_err["phase_conv"], conv_rel_err = check_phase_conv(
         phase_conv, np.random.default_rng(SEED + 7))
 
     # 4. main path
@@ -1077,10 +1105,14 @@ def run() -> None:
     sym = torch.from_numpy(np.arange(BATCH) % 4 == 0).cuda()
     mesh = (model, target, sym)
 
-    # launch counts per path: {path: {kernel: launches}}
+    # launch counts per path: {path: {kernel: launches}}; "auto" is kernel
+    # 6 on the card, so the fused decoder's three phase convolutions launch it
     knn.adds_remap_kernel.launches = 0
+    phase_conv.phase_conv_kernel.launches = 0
     samples, dist = main_path(est, frames, mesh)
-    path_launches = {"serving": {"adds_remap": knn.adds_remap_kernel.launches}}
+    path_launches = {"serving": {
+        "adds_remap": knn.adds_remap_kernel.launches,
+        "phase_conv": phase_conv.phase_conv_kernel.launches}}
     log(f"[4] main path: 3 frames + B={BATCH} batch + pose_distances "
         f"(mean {float(dist.mean()):.4f} m); launches "
         f"{path_launches['serving']}")
@@ -1091,7 +1123,7 @@ def run() -> None:
 
     # 4b. training path (its own launch counts, reset per step)
     train_state, (b1, b2), path_launches["training"] = train_path(
-        add_dist, np.random.default_rng(SEED + 2))
+        add_dist, phase_conv, np.random.default_rng(SEED + 2))
     log(f"[4b] training path: launches over all steps "
         f"{path_launches['training']}")
 
@@ -1248,7 +1280,9 @@ def run() -> None:
             f"{ref_ms:.4f} ms, bound {bnd:.5f} ms ({by}); card {card}")
 
     # kernel 6 at the decoder's three phase-conv shapes, beside its plain
-    # version and the library convolution on the same padded input
+    # version and the library convolution on the same padded input; the
+    # library and the kernel timed in turns (library, kernel, kernel,
+    # library), each figure the mean of its two readings
     import torch.nn.functional as F
     gen = torch.Generator("cuda").manual_seed(SEED)
     conv_times = {}
@@ -1258,22 +1292,43 @@ def run() -> None:
         pk = torch.randn((3, 3, cin, cout), device="cuda",
                          generator=gen) / np.sqrt(9 * cin)
         w_oihw = pk.permute(3, 2, 0, 1).contiguous()
-        k_ms = graph_ms(lambda: phase_conv.phase_conv_kernel(xp, pk),
-                        replays=20)
+        readings = [
+            cuda_ms(lambda: F.conv2d(xp, w_oihw), iters=10, warmup=2)
+            if fn == "library" else
+            graph_ms(lambda: phase_conv.phase_conv_kernel(xp, pk),
+                     replays=20)
+            for fn in ("library", "kernel", "kernel", "library")]
+        k_ms = (readings[1] + readings[2]) / 2
+        l_ms = (readings[0] + readings[3]) / 2
         p_ms = cuda_ms(lambda: phase_conv.conv3x3_valid_plain_nchw(xp, pk),
                        iters=3, warmup=1)
-        l_ms = cuda_ms(lambda: F.conv2d(xp, w_oihw), iters=10, warmup=2)
-        lib_diff = float((phase_conv.phase_conv_kernel(xp, pk)
-                          - F.conv2d(xp, w_oihw)).abs().max())
+        got = phase_conv.phase_conv_kernel(xp, pk)
+        plain = phase_conv.conv3x3_valid_plain_nchw(xp, pk)
+        rel_plain = float((got - plain).abs().max() / plain.abs().max())
+        lib = F.conv2d(xp, w_oihw)
+        rel_lib = float((got - lib).abs().max() / lib.abs().max())
         bnd, by = conv_bound_ms(BATCH, hw, hw, cin, cout)
+        ffma, _ = conv_bound_ms(BATCH, hw, hw, cin, cout, "ffma")
         conv_times[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                            "kernel_over_library": k_ms / l_ms,
+                            "readings_ms": {"library": readings[::3],
+                                            "kernel": readings[1:3]},
                             "bound_ms": bnd, "bound_by": by,
-                            "max_abs_diff_vs_library": lib_diff}
+                            "bound_arithmetic": "3xtf32",
+                            "bound_ffma_ms": ffma,
+                            "rel_err_vs_plain": rel_plain,
+                            "rel_diff_vs_library": rel_lib}
         log(f"[6] phase_conv {name} (B={BATCH}, {hw}x{hw}, {cin} -> {cout}): "
-            f"kernel {k_ms:.4f} ms (graph replays), plain {p_ms:.4f} ms, "
-            f"F.conv2d {l_ms:.4f} ms ({precision_policy()}), bound "
-            f"{bnd:.4f} ms ({by}), {k_ms / bnd:.2f}x the bound; kernel vs "
-            f"F.conv2d max abs diff {lib_diff}; card {card}")
+            f"kernel {k_ms:.4f} ms (graph replays), F.conv2d {l_ms:.4f} ms "
+            f"({precision_policy()}), kernel / library {k_ms / l_ms:.3f}; "
+            f"plain {p_ms:.4f} ms; bound {bnd:.4f} ms (3xTF32, {by}), "
+            f"{k_ms / bnd:.2f}x it; FFMA bound {ffma:.4f} ms; kernel vs "
+            f"plain {rel_plain:.3g}, vs F.conv2d {rel_lib:.3g} of the "
+            f"largest; card {card}")
+    faster = all(c["ms"] <= c["library_ms"] for c in conv_times.values())
+    log(f"[6] phase_conv: kernel no slower than F.conv2d at all three "
+        f"shapes: {faster}; \"auto\" on the card is "
+        f"{phase_conv.auto_backend(torch.device('cuda'))!r}; card {card}")
 
     # 7. kernels line: "launches" is the count on the kernel's own path (the
     # slice that ported it), "launches_by_path" its count on every path
@@ -1326,9 +1381,12 @@ def run() -> None:
         "replaces": "densefusion_tpu/ops/phase_conv.py:72",
         **launches("phase_conv", "decoder"),
         "launches_by_stage": decoder["by_stage"],
-        "max_abs_err": max_err["phase_conv"], "ms": up1["ms"],
+        "max_abs_err": max_err["phase_conv"],
+        "max_rel_err": conv_rel_err, "ms": up1["ms"],
         "plain_ms": up1["plain_ms"], "bound_ms": up1["bound_ms"],
-        "bound_by": up1["bound_by"], "library_ms": up1["library_ms"],
+        "bound_by": up1["bound_by"], "bound_ffma_ms": up1["bound_ffma_ms"],
+        "library_ms": up1["library_ms"],
+        "kernel_over_library": up1["kernel_over_library"],
         "library_note": "F.conv2d on the same padded input, VALID, TF32 off",
         "shape": "up1 (B=64, 24x24, 1024 -> 1024)", "by_shape": conv_times,
         "parity": "ok", "build_s": build_s,

@@ -107,7 +107,9 @@ def phase_conv_phases(x: torch.Tensor, weight: torch.Tensor,
     full-res pixel (2i+py, 2j+px), channel d lives at
     [:, (py*2+px)*Cout + d, i, j]. ``conv_backend`` picks the convolution's
     route (:func:`densefusion_tpu_torch.ops.phase_conv.conv3x3_valid`):
-    "kernel" is ``csrc/phase_conv.cu``, "library" and "auto" ``F.conv2d``."""
+    "kernel" is ``csrc/phase_conv.cu``, "library" ``F.conv2d``, "auto"
+    :func:`densefusion_tpu_torch.ops.phase_conv.auto_backend` of the input's
+    device."""
     xp = F.pad(x, (1, 1, 1, 1), mode="replicate")
     y = conv3x3_valid_nchw(xp, phase_conv_weight(weight), conv_backend)
     return y + bias.repeat(4)[:, None, None]

@@ -3,19 +3,30 @@
 Counterpart of ``densefusion_tpu/ops/phase_conv.py``. Its TPU kernel,
 ``_conv_kernel`` (``densefusion_tpu/ops/phase_conv.py:72``), becomes the
 hand-written Hopper kernel ``csrc/phase_conv.cu`` (wrapper
-:data:`phase_conv_kernel`): nine shifted products in flat spatial space into
-one float32 sum, the two phantom columns per row never stored.
+:data:`phase_conv_kernel`): nine shifted products in flat spatial space,
+split-precision TF32 (3xTF32) on the tensor cores into float32 sums, the
+two phantom columns per row never stored.
 
 Three routes compute the same function:
 
 - the library convolution, ``F.conv2d`` (the JAX package's
   ``conv3x3_valid_xla``, which leaves it to XLA);
-- the kernel's own arithmetic in plain PyTorch (:func:`conv3x3_valid_plain`),
-  which the CPU tests use and ``chip_smoke.py`` holds the kernel to;
+- the kernel's function in plain PyTorch (:func:`conv3x3_valid_plain`, nine
+  float32 matmuls), which the CPU tests use and ``chip_smoke.py`` holds the
+  kernel to;
 - the kernel, through an autograd Function whose forward launches it on
   CUDA tensors (the plain version on CPU tensors) and whose backward is the
   library convolution's, as the JAX package's backward is XLA's
   (``_conv3x3_bwd``). A CUDA tensor launches the kernel or raises.
+
+``"auto"`` is :func:`auto_backend` of the input's device: the kernel on
+CUDA, the library convolution on the CPU. Measured, as the JAX package
+chose its own ``"auto"`` (XLA, because its Pallas kernel lost on the v5e):
+on an NVIDIA H100 80GB HBM3 at 700 W the kernel beat cuDNN's float32
+``F.conv2d`` (TF32 off) at all three of the decoder's phase-conv shapes at
+B=64 (``chip_smoke.py`` [6]; up1 24x24x1024->1024: 8.26 against 15.57 ms,
+up2 48x48x256->256: 2.16 against 4.12 ms, up3 96x96x64->256: 2.43 against
+4.05 ms). On the CPU there is no kernel.
 
 The public :func:`conv3x3_valid` keeps the JAX package's NHWC / HWIO
 signature; the port's NCHW decoder calls :func:`conv3x3_valid_nchw`, which
@@ -139,13 +150,22 @@ class KernelConv3x3(torch.autograd.Function):
         return gx, (None if gw is None else gw.permute(2, 3, 1, 0))
 
 
+def auto_backend(device: torch.device) -> str:
+    """The route ``"auto"`` takes on ``device``: ``"kernel"`` on CUDA,
+    ``"library"`` elsewhere (the measured reason is in the module
+    docstring)."""
+    return "kernel" if torch.device(device).type == "cuda" else "library"
+
+
 def conv3x3_valid_nchw(xp: torch.Tensor, pk: torch.Tensor,
                        backend: str = "auto") -> torch.Tensor:
     """:func:`conv3x3_valid` on an NCHW map: xp (B, Cin, h+2, w+2), pk (3, 3,
     Cin, Cout) HWIO -> (B, Cout, h, w)."""
+    if backend == "auto":
+        backend = auto_backend(xp.device)
     if backend == "kernel":
         return KernelConv3x3.apply(xp, pk)
-    if backend in ("auto", "library"):
+    if backend == "library":
         return _library_nchw(xp, pk)
     raise ValueError(f"unknown conv backend {backend!r}; one of {BACKENDS}")
 
@@ -161,7 +181,7 @@ def conv3x3_valid(xp: torch.Tensor, pk: torch.Tensor,
     ==========  =========  ===============================================
     port        JAX        route
     ==========  =========  ===============================================
-    "auto"      "auto"     the library convolution (``F.conv2d``)
+    "auto"      "auto"     :func:`auto_backend` of the input's device
     "library"   "xla"      the library convolution
     "kernel"    "pallas"   :class:`KernelConv3x3`: ``csrc/phase_conv.cu`` on
                            CUDA tensors, its plain version on CPU tensors;

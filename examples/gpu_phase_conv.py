@@ -14,10 +14,16 @@ Shapes (``chip_smoke.DECODER_CONVS``, 192 px crops):
 
 Each pair is timed in turns (library, kernel, kernel, library) with CUDA
 events over back-to-back calls after a warm-up, on one card, so the two are
-compared within one process. Beside each: the kernel's bound
-(``chip_smoke.conv_bound_ms``) and the largest difference between the two
-outputs, relative to the largest output. Prints one JSON object and, given
-a path, writes it there.
+compared within one process. Beside each: the kernel's two bounds
+(``chip_smoke.conv_bound_ms``: its own 3xTF32 arithmetic on the tensor
+cores, and the FFMA bound of a float32 kernel on the CUDA cores) and the
+largest difference between the two outputs, relative to the largest
+output. The whole ``phase_upsample_conv3x3`` stage is timed the same way
+under ``conv_backend="library"`` and ``"kernel"``; ``"auto"`` is the
+kernel on the card. Last, the serving pipeline at B=64, K=2 (``chip_smoke``'s
+estimator and batch) in turns with ``"auto"`` resolved to the library and
+to the kernel, so the end-to-end gain is read on one card and one host.
+Prints one JSON object and, given a path, writes it there.
 """
 
 from __future__ import annotations
@@ -53,6 +59,38 @@ def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max()) / float(b.abs().max())
 
 
+def pipeline_in_turns() -> dict:
+    """The fused-decoder pipeline at B=64, K=2 with inputs on the card,
+    ``"auto"`` resolved to "library" and to "kernel" in turns."""
+    from densefusion_tpu_torch.data import collate
+
+    rng = np.random.default_rng(cs.SEED)
+    est, _ = cs.seeded_estimator(rng)
+    frames = [cs.make_frame(rng) for _ in range(20)]
+    b = collate(cs.batch_samples(est, frames, cs.BATCH))
+    args = (torch.as_tensor(b.img, device="cuda"),
+            torch.as_tensor(b.points, device="cuda"),
+            torch.as_tensor(b.choose, device="cuda").long(),
+            torch.as_tensor(b.obj_idx, device="cuda").long())
+    resolve = phase_conv.auto_backend
+
+    def run(route):
+        def call():
+            phase_conv.auto_backend = lambda device: route
+            try:
+                est.pipeline(*args)
+            finally:
+                phase_conv.auto_backend = resolve
+        return call
+
+    t = in_turns(run("library"), run("kernel"), iters=20)
+    return {"shape": f"B={cs.BATCH}, K={cs.REFINE_ITERS}, fused decoder",
+            "library_ms": t["first_ms"], "kernel_ms": t["second_ms"],
+            "readings_ms": t["readings_ms"],
+            "frames_per_s": {"library": cs.BATCH * 1e3 / t["first_ms"],
+                             "kernel": cs.BATCH * 1e3 / t["second_ms"]}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -70,11 +108,13 @@ def main() -> None:
         t = in_turns(lambda: F.conv2d(xp, w_oihw),
                      lambda: phase_conv.phase_conv_kernel(xp, pk), iters=10)
         bound, by = cs.conv_bound_ms(b, hw, hw, cin, cout)
+        ffma, _ = cs.conv_bound_ms(b, hw, hw, cin, cout, "ffma")
         result["conv"][name] = {
             "shape": f"B={b}, {hw}x{hw}, {cin} -> {cout}",
             "library_ms": t["first_ms"], "kernel_ms": t["second_ms"],
             "readings_ms": t["readings_ms"], "bound_ms": bound,
-            "bound_by": by, "kernel_over_bound": t["second_ms"] / bound,
+            "bound_by": by, "bound_ffma_ms": ffma,
+            "kernel_over_bound": t["second_ms"] / bound,
             "kernel_over_library": t["second_ms"] / t["first_ms"],
             "rel_diff": rel_diff(phase_conv.phase_conv_kernel(xp, pk),
                                  F.conv2d(xp, w_oihw))}
@@ -97,6 +137,7 @@ def main() -> None:
             "library_ms": t["first_ms"], "kernel_ms": t["second_ms"],
             "readings_ms": t["readings_ms"],
             "rel_diff": rel_diff(stage("kernel"), stage("library"))}
+    result["pipeline"] = pipeline_in_turns()
     text = json.dumps(result, indent=1)
     print(text)
     if len(sys.argv) > 1:

@@ -8,8 +8,11 @@ Pure arithmetic, no card needed. A bound is the larger of the operations
 over the card's peak rate for their type and the bytes (each input read
 once, each output written once) over its memory rate; the rates are the
 data-sheet peaks ``chip_smoke.py`` uses (67 TFLOP/s fp32 outside the tensor
-cores, 3.35 TB/s). The bounds come from ``chip_smoke.py``'s own functions,
-which it also reports beside their measured times.
+cores, 494.7 TFLOP/s dense TF32 on them, 3.35 TB/s). Kernel 6 gets two:
+its own arithmetic's (three TF32 products per product, 3xTF32) and the
+FFMA bound of a float32 kernel on the CUDA cores. The bounds come from
+``chip_smoke.py``'s own functions, which it also reports beside their
+measured times.
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ def main() -> None:
          f"Q={n * m}, R={m}", cs.nn_bound_ms(cs.TRAIN_SYM_ROWS, n * m, m)),
         ("5 _remap_kernel_bt", "B=64, Q=R=500 (the scoring shape)",
          cs.remap_bound_ms(cs.BATCH, cs.NUM_MESH, cs.NUM_MESH, cs.BATCH)),
-    ] + [("6 _conv_kernel", f"{name}'s phase conv, B={cs.BATCH}, "
-          f"{hw}x{hw}, {cin} -> {cout}, float32",
-          cs.conv_bound_ms(cs.BATCH, hw, hw, cin, cout))
-         for name, hw, cin, cout in cs.DECODER_CONVS]
+    ] + [(f"6 _conv_kernel ({arith})", f"{name}'s phase conv, "
+          f"B={cs.BATCH}, {hw}x{hw}, {cin} -> {cout}, float32",
+          cs.conv_bound_ms(cs.BATCH, hw, hw, cin, cout, arith))
+         for name, hw, cin, cout in cs.DECODER_CONVS
+         for arith in ("3xtf32", "ffma")]
     for kernel, shape, (ms, by) in rows:
         print(json.dumps({"kernel": kernel, "shape": shape, "bound_ms": ms,
                           "bound_by": by}))

@@ -8,8 +8,15 @@ route (on the CPU its autograd Function runs the plain version) and the
 library convolution. On the card the kernel itself is held to the plain
 version (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
+The kernel's arithmetic (3xTF32: each float32 operand split into two TF32
+parts, three tensor-core products per product) cannot run here; a torch
+emulation of it is held to the JAX package's XLA convolution, and to a
+float64 reference at the decoder's channel depths, where one TF32 product
+alone is too coarse: that test is the written reason for the split.
+
 Tolerance: rtol 1e-5 / atol 1e-5, the JAX kernel test's own, for the plain
-and kernel routes (float32, the same products summed in another order).
+and kernel routes and the emulation (float32, the same products summed in
+another order).
 The library route (oneDNN's blocked sums on the CPU) reaches 2e-5 absolute
 on outputs of magnitude ~20 at Cin=256, and is held at atol 1e-4. The
 layers compose the phase kernels and border corrections in another order
@@ -89,6 +96,114 @@ def test_auto_is_the_library_route():
                        phase_conv.conv3x3_valid_library(xp, pk))
     with pytest.raises(ValueError, match="backend"):
         phase_conv.conv3x3_valid(xp, pk, backend="pallas")
+
+
+@pytest.mark.parametrize("device,route", [("cpu", "library"),
+                                          ("cuda", "kernel"),
+                                          ("cuda:1", "kernel")])
+def test_auto_backend_by_device(device, route):
+    """``"auto"`` is the kernel on the card (it measured faster than cuDNN's
+    float32 convolution at the decoder's shapes) and the library elsewhere;
+    the choice needs no card to be read."""
+    assert phase_conv.auto_backend(torch.device(device)) == route
+
+
+def test_auto_dispatches_to_the_resolved_route(monkeypatch):
+    """``conv3x3_valid_nchw(..., "auto")`` runs the route ``auto_backend``
+    names for the input's device: resolved to the kernel route, a CPU input
+    runs the kernel's plain version."""
+    xp, pk = (torch.from_numpy(a) for a in _inputs(SHAPES[2]))
+    xp = xp.permute(0, 3, 1, 2).contiguous()
+    seen = []
+
+    def fake(device):
+        seen.append(torch.device(device).type)
+        return "kernel"
+
+    monkeypatch.setattr(phase_conv, "auto_backend", fake)
+    got = phase_conv.conv3x3_valid_nchw(xp, pk)
+    assert seen == ["cpu"]
+    assert torch.equal(got, phase_conv.conv3x3_valid_plain_nchw(xp, pk))
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 stored mantissa bits) to nearest,
+    ties away from zero, by bit mask: add half of the 13 dropped bits to the
+    magnitude and clear them (``cvt.rna.tf32.f32``'s rounding, and the
+    kernel's ``tf32_rna``)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def conv_3xtf32(xp, pk):
+    """The kernel's arithmetic through the nine-shift convolution: both
+    operands split, hi*lo + lo*hi + hi*hi, lo*lo dropped. The products of
+    two TF32 numbers are exact in float32; they are summed in float64 (the
+    kernel sums all three into one float32 sum per output, so three float32
+    sums would add roundings it does not make). float64 result."""
+    (xh, xl), (wh, wl) = split_tf32(xp), split_tf32(pk)
+
+    def conv(a, b):
+        return phase_conv.conv3x3_valid_plain_nchw(a.double(), b.double())
+
+    return conv(xh, wl) + conv(xl, wh) + conv(xh, wh)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal(4000)
+         * 10.0 ** rng.integers(-20, 20, 4000)).astype(np.float32)
+    # exact ties: 11 significant bits and a half, both signs
+    ties = np.ldexp(np.arange(1024, 2048) + 0.5, -7).astype(np.float32)
+    x = np.concatenate([x, ties, -ties])
+    m, e = np.frexp(np.abs(x.astype(np.float64)))   # |x| = m 2^e, m in [.5, 1)
+    want = np.sign(x) * np.floor(m * 2.0 ** 11 + 0.5) * 2.0 ** (e - 11)
+    got = tf32_rna(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.astype(np.float64), want)
+    hi, lo = split_tf32(torch.from_numpy(x))
+    assert (hi.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert (lo.view(torch.int32) & 0x1FFF).eq(0).all()
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_3xtf32_emulation_matches_jax(shape):
+    xp, pk = _inputs(shape)
+    got = conv_3xtf32(torch.from_numpy(xp).permute(0, 3, 1, 2),
+                      torch.from_numpy(pk)).float()
+    _, xla = _jax_outputs(shape)
+    np.testing.assert_allclose(to_np(got.permute(0, 2, 3, 1)), xla,
+                               **CONV_TOL)
+
+
+# the decoder's three phase convolutions at B=1 (192 px crops), Cout cut to
+# 64 to keep the float64 reference cheap: (h = w, Cin)
+DECODER_DEPTHS = [(24, 1024), (48, 256), (96, 64)]
+
+
+@pytest.mark.parametrize("hw,cin", DECODER_DEPTHS, ids=str)
+def test_3xtf32_keeps_float32_accuracy(hw, cin):
+    """Against a float64 reference, the emulation's sums in float64 so
+    that only the split shows: 3xTF32 stays within 1e-6 of the largest
+    output; one TF32 product (hi*hi) misses the 1e-4 gate of
+    ``chip_smoke.py`` [3d]. Weights scaled by 1/sqrt(9 Cin), as in
+    ``chip_smoke.conv_cases``."""
+    rng = np.random.default_rng(6)
+    xp = torch.from_numpy(rng.standard_normal(
+        (1, cin, hw + 2, hw + 2)).astype(np.float32))
+    pk = torch.from_numpy((rng.standard_normal((3, 3, cin, 64))
+                           / np.sqrt(9 * cin)).astype(np.float32))
+    want = phase_conv.conv3x3_valid_plain_nchw(xp.double(), pk.double())
+    scale = float(want.abs().max())
+    err3 = float((conv_3xtf32(xp, pk) - want).abs().max())
+    one = phase_conv.conv3x3_valid_plain_nchw(tf32_rna(xp).double(),
+                                              tf32_rna(pk).double())
+    err1 = float((one - want).abs().max())
+    assert err3 <= 1e-6 * scale
+    assert err1 > 1e-4 * scale
 
 
 @pytest.mark.parametrize("layout", ["nhwc", "nchw"])
