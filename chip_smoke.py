@@ -14,12 +14,15 @@ fails. Phases, in order:
 3. each kernel against its plain PyTorch version on the card: the remap at
    the scoring shape, at a ragged shape with a gated row, on exact ties;
    the ADD (paired) and ADD-S (min) distance kernels at the phase-1 and
-   refiner shapes, a ragged shape with a gated row, exact ties, batches
-   with every row and with no row symmetric, and hypotheses at the pose,
-   and the autograd Function's backward;
+   refiner shapes, a ragged shape with a gated row, exact ties (also
+   between targets at swapped x and y, across the split scan's warps and
+   its tiles, where a wrong winner moves the coefficients), batches with
+   every row and with no row symmetric (also at the phase-1 shape), and
+   hypotheses at the pose, and the autograd Function's backward;
    3c. the 1-NN kernels (rank 2 and batched) at the ``bench_knn`` shape,
-   the phase-1 ADD-S shape, ragged shapes, exact ties and sentinel-padded
-   refs: indices equal, distances bit-identical;
+   the phase-1 ADD-S shape, ragged shapes, exact ties, sentinel-padded
+   refs, the refiner's shape (a grid of a few blocks) and ties that
+   straddle the split scan: indices equal, distances bit-identical;
    3d. the decoder's phase-conv kernel (kernel 6, 3xTF32 on the tensor
    cores) at the decoder's three phase-conv shapes at B=64, the JAX kernel
    test's ragged shapes, B=1, and two cases at the edges of its tiles,
@@ -58,7 +61,10 @@ fails. Phases, in order:
    phase-2 step times at B=32, and each kernel's, its plain version's and
    the build's time (for the 1-NN kernels also ``torch.cdist(q, r)
    .min(-1)``'s; for kernel 6 at its three shapes ``F.conv2d``'s, timed in
-   turns with it, and both its bounds, 3xTF32 and FFMA);
+   turns with it, and both its bounds, 3xTF32 and FFMA); the ADD-S min
+   kernel at the refiner shape in five windows, with the active rows first
+   and spread; for the redesigned scans (kernels 2, 3, 4) time over bound
+   and launches x (time - bound);
 7. a JSON line listing every ported kernel (``kernels``), with its launch
    count on the path that ported it (``launches``) and on each path
    (``launches_by_path``);
@@ -324,6 +330,26 @@ def pose_problem(rng, b, n, m, dup=False, at_pose=False):
                  for x in (R, t, model, target))
 
 
+def swapped_ties_problem(rng, b, n, m, device="cuda"):
+    """(R, t, model, target) with exact ties between targets at different
+    places: targets k and k + M/2 are (x, y, z) and (y, x, z), every
+    hypothesis is the identity rotation with t_x = t_y, and every model
+    point has x = y. So every query has q_x = q_y and scores both targets of
+    a pair alike, bit for bit (the same rounded products, added in the same
+    order up to commutation). A wrong tie winner swaps the x and y of the
+    query's difference to its target, and with them the coefficients."""
+    model = 0.05 * rng.standard_normal((b, m, 3))
+    model[..., 1] = model[..., 0]
+    t = (rng.uniform(-0.3, 0.3, (b, 1, 3)) + np.array([0.0, 0.0, 0.8])
+         + 0.05 * rng.standard_normal((b, n, 3)))
+    t[..., 1] = t[..., 0]
+    R = np.broadcast_to(np.eye(3), (b, n, 3, 3))
+    half = 0.05 * rng.standard_normal((b, m // 2, 3)) + t[:, :1]
+    target = np.concatenate([half, half[..., [1, 0, 2]]], axis=1)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32))
+                 .to(device) for x in (R, t, model, target))
+
+
 def check_add_dist(add_dist, rng) -> dict:
     """Phase 3: the paired (ADD) and min (ADD-S) kernels against their plain
     versions, each gated on its rows: dis within rtol 1e-5, the 12
@@ -331,6 +357,8 @@ def check_add_dist(add_dist, rng) -> dict:
     and the scores, so only the order of the sums differs), gated rows
     exactly 0; then the autograd Function's backward on the card equal to
     ``g * coef`` of the plain versions (atol 2e-5)."""
+    from densefusion_tpu_torch.ops import knn
+
     phase1_sym = np.arange(TRAIN_BATCH) < TRAIN_SYM_ROWS
     cases = [
         ("phase-1 (32, N=1000, M=500)", (TRAIN_BATCH, NUM_POINTS, NUM_MESH),
@@ -345,10 +373,26 @@ def check_add_dist(add_dist, rng) -> dict:
          np.zeros(3, bool)),
         ("at the pose (4, N=20, M=300)", (4, 20, 300), {"at_pose": True},
          np.array([True, False, True, False])),
+        # tied targets at k and k + M/2, at swapped x and y, fall to
+        # different warps of a split scan (M/2 is no multiple of the split)
+        # and across target tiles: a wrong winner changes the coefficients
+        ("ties across the split (4, N=10, 2x301 targets, x and y swapped)",
+         (4, 10, 602), {"swapped": True},
+         np.array([True, True, False, True])),
+        ("ties across the split and tiles (2, N=3, 2x1300 targets, x and y "
+         "swapped)", (2, 3, 2600), {"swapped": True}, np.ones(2, bool)),
+        ("no active row for the min kernel at the phase-1 shape",
+         (TRAIN_BATCH, NUM_POINTS, NUM_MESH), {},
+         np.zeros(TRAIN_BATCH, bool)),
     ]
     worst = {"add_dist_paired": 0.0, "add_dist_min": 0.0}
     for name, shape, kw, sym in cases:
-        args = pose_problem(rng, *shape, **kw)
+        split = knn.scan_split(*shape, min_kernel=True)
+        if "across the split" in name and split == 1:
+            raise AssertionError(f"add_dist_min: {name} ran unsplit")
+        kw = dict(kw)
+        args = (swapped_ties_problem(rng, *shape) if kw.pop("swapped", False)
+                else pose_problem(rng, *shape, **kw))
         for key, kernel, plain, act in (
                 ("add_dist_paired", add_dist.paired_kernel,
                  add_dist.paired_plain, ~sym),
@@ -372,8 +416,10 @@ def check_add_dist(add_dist, rng) -> dict:
                 raise AssertionError(f"{key}: coefficients not 0 at the pose")
             err = max(float((kd - pd).abs().max()), cerr)
             worst[key] = max(worst[key], err)
-            log(f"  {key} kernel == plain on {name}: max abs err {err:.3g} "
-                f"(dis {float((kd - pd).abs().max()):.3g}, coef {cerr:.3g})")
+            log(f"  {key} kernel == plain on {name}"
+                + (f", split {split}" if key == "add_dist_min" else "")
+                + f": max abs err {err:.3g} (dis "
+                f"{float((kd - pd).abs().max()):.3g}, coef {cerr:.3g})")
 
     R, t, model, target = pose_problem(rng, 6, 50, 300)
     sym = torch.tensor([1, 0, 1, 0, 0, 1], dtype=torch.bool, device="cuda")
@@ -427,6 +473,18 @@ def nn_cases(rng):
          far(pts(0, 3), 4)),
         ("sentinel-padded (B=2, Q=90, R=70+5)", True, pts(2, 90, 3),
          far(pts(2, 70, 3), 5)),
+        # the refiner's shape (M=2600 against M=2600): a grid of a few
+        # blocks, so the scan is split across warps
+        (f"refiner shape, small grid (Q={REFINE_MESH}, R={REFINE_MESH})",
+         False, pts(REFINE_MESH, 3), pts(REFINE_MESH, 3)),
+        # duplicates at i and i + R/2 fall to different warps of a split
+        # scan (R/2 is no multiple of the split), and across tiles
+        ("ties across the split (Q=2000, 2x301 duplicated refs)", False,
+         pts(2000, 3), dup(pts(301, 3))),
+        ("ties across the split and tiles (Q=900, 2x1300 duplicated refs)",
+         False, pts(900, 3), dup(pts(1300, 3))),
+        ("ties across the split (B=2, Q=300, 2x301 duplicated refs)", True,
+         pts(2, 300, 3), dup(pts(2, 301, 3))),
     ]
 
 
@@ -443,6 +501,10 @@ def check_nn(knn, rng) -> dict:
         kernel = knn.nn_batched_kernel if batched else knn.nn_kernel
         plain = knn.nearest_neighbor_plain_batched if batched \
             else knn.nearest_neighbor_plain
+        split = knn.scan_split(q.shape[0] if batched else 1, q.shape[-2],
+                               r.shape[-2])
+        if "across the split" in name and split == 1:
+            raise AssertionError(f"{key}: {name} ran unsplit")
         q, r = torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
         kd, ki = kernel(q, r)
         pd, pi = plain(q, r)
@@ -457,8 +519,8 @@ def check_nn(knn, rng) -> dict:
             raise AssertionError(f"{key}: ties did not go to the lowest "
                                  f"index on {name}")
         worst[key] = max(worst[key], err)
-        log(f"  {key} kernel == plain on {name}: indices equal, max "
-            f"distance err {err}")
+        log(f"  {key} kernel == plain on {name}, split {split}: indices "
+            f"equal, max distance err {err}")
     return worst
 
 
@@ -781,7 +843,7 @@ def train_path(add_dist, phase_conv, rng):
     kernel twice; both phases' PoseNet forward launches kernel 6 once per
     phase convolution (up1, up2, up3). Every step's loss and gradients must
     be finite and its parameters must move. Returns (state, batches, launch
-    totals)."""
+    totals, launch totals per phase)."""
     from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
     from densefusion_tpu_torch.train import (
         create_train_state, make_pose_train_step, make_refine_train_step,
@@ -791,6 +853,7 @@ def train_path(add_dist, phase_conv, rng):
                "add_dist_min": add_dist.min_kernel,
                "phase_conv": phase_conv.phase_conv_kernel}
     totals = dict.fromkeys(kernels, 0)
+    by_phase = {1: dict.fromkeys(kernels, 0), 2: dict.fromkeys(kernels, 0)}
     state = create_train_state(PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ), LR,
                                SEED)
     b1 = train_batch(rng, TRAIN_BATCH, NUM_MESH)
@@ -813,6 +876,7 @@ def train_path(add_dist, phase_conv, rng):
             got = {name: k.launches for name, k in kernels.items()}
             for name, n in got.items():
                 totals[name] += n
+                by_phase[phase][name] += n
                 if n < 1 or n != want.get(name, n):
                     raise AssertionError(
                         f"phase-{phase} step {i}: launches {got}, expected "
@@ -829,7 +893,7 @@ def train_path(add_dist, phase_conv, rng):
         log(f"[4b] phase-{phase} steps at B={TRAIN_BATCH}, M="
             f"{batch.target.shape[1]}: losses {losses}, launches per step "
             f"{got}")
-    return state, (b1, b2), totals
+    return state, (b1, b2), totals, by_phase
 
 
 def train_cpu_agreement(states, rng) -> dict:
@@ -1122,8 +1186,8 @@ def run() -> None:
                                  "main path")
 
     # 4b. training path (its own launch counts, reset per step)
-    train_state, (b1, b2), path_launches["training"] = train_path(
-        add_dist, phase_conv, np.random.default_rng(SEED + 2))
+    train_state, (b1, b2), path_launches["training"], train_by_phase = \
+        train_path(add_dist, phase_conv, np.random.default_rng(SEED + 2))
     log(f"[4b] training path: launches over all steps "
         f"{path_launches['training']}")
 
@@ -1242,14 +1306,35 @@ def run() -> None:
              add_dist.paired_kernel, main2, ones, TRAIN_BATCH, False),
             ("add_dist_paired, refiner (32, N=1, M=2600)",
              add_dist.paired_kernel, ref2, acts["add_dist_paired"],
-             TRAIN_BATCH - TRAIN_SYM_ROWS, False),
-            ("add_dist_min, refiner (32, N=1, M=2600)", add_dist.min_kernel,
-             ref2, acts["add_dist_min"], TRAIN_SYM_ROWS, True)):
+             TRAIN_BATCH - TRAIN_SYM_ROWS, False)):
         k_ms = graph_ms(lambda: kernel(*args, a))
         bnd, by = add_dist_bound_ms(TRAIN_BATCH, args[0].shape[1],
                                     REFINE_MESH, rows, nearest)
         log(f"[6] {label}, {rows} rows active: kernel {k_ms:.4f} ms (graph "
             f"replays), bound {bnd:.5f} ms ({by}); card {card}")
+    # the min kernel at the refiner shape, in five graph windows (its first
+    # design read ~78 or ~106 us from call to call), with the active rows
+    # first (as training has them) and spread over the batch (rows 0, 4,
+    # ...), which puts the active work on other SMs
+    spread = (torch.arange(TRAIN_BATCH, device="cuda") % 4 == 0).int()
+    ref_read = {
+        where: [graph_ms(lambda: add_dist.min_kernel(*ref2, a))
+                for _ in range(5)]
+        for where, a in (("first rows", acts["add_dist_min"]),
+                         ("spread rows", spread))}
+    ref_ms = float(np.mean(ref_read["first rows"]))
+    ref_bnd, ref_by = add_dist_bound_ms(TRAIN_BATCH, 1, REFINE_MESH,
+                                        TRAIN_SYM_ROWS, True)
+    dist_times["add_dist_min_refiner"] = (ref_ms, ref_bnd, ref_by,
+                                          ref_read)
+    log(f"[6] add_dist_min, refiner (32, N=1, M=2600), {TRAIN_SYM_ROWS} rows "
+        f"active, split "
+        f"{knn.scan_split(TRAIN_BATCH, 1, REFINE_MESH, min_kernel=True)}: "
+        f"kernel {ref_ms:.4f} ms (mean of 5 graph windows: first rows "
+        f"{[round(x, 5) for x in ref_read['first rows']]}, spread rows "
+        f"{[round(x, 5) for x in ref_read['spread rows']]}), bound "
+        f"{ref_bnd:.5f} ms ({ref_by}), {ref_ms / ref_bnd:.2f}x it; card "
+        f"{card}")
 
     # the 1-NN kernels at the bench_knn and phase-1 ADD-S shapes
     def points(*shape):
@@ -1278,6 +1363,28 @@ def run() -> None:
             f"{k_ms:.4f} ms on the card (graph replays), {w_ms:.4f} ms per "
             f"eager wrapper call, plain {p_ms:.4f} ms, torch.cdist + min "
             f"{ref_ms:.4f} ms, bound {bnd:.5f} ms ({by}); card {card}")
+
+    # the redesigned search scans (kernels 2, 3, 4): time, bound, ratio
+    # and launches x (time - bound) over the driven paths
+    k_p1, _, _, b_p1, _ = dist_times["add_dist_min"]
+    k_ref, b_ref = dist_times["add_dist_min_refiner"][:2]
+    n_p1 = train_by_phase[1]["add_dist_min"]
+    n_ref = train_by_phase[2]["add_dist_min"]
+    n_search = path_launches["search"]["add_dist_min"]
+    excess = {"add_dist_min": (n_p1 + n_search) * (k_p1 - b_p1)
+              + n_ref * (k_ref - b_ref)}
+    log(f"[6] redesigned add_dist_min: phase 1 {k_p1:.4f} ms / bound "
+        f"{b_p1:.4f} = {k_p1 / b_p1:.2f}x; refiner {k_ref:.4f} ms / "
+        f"{b_ref:.5f} = {k_ref / b_ref:.2f}x; launches phase 1 {n_p1}, "
+        f"refiner {n_ref}, search {n_search}; launches x (time - bound) "
+        f"{excess['add_dist_min']:.4f} ms; card {card}")
+    for name in ("nn", "nn_batched"):
+        k_ms, _, _, bnd, _, _ = nn_times[name]
+        n = path_launches["search"][name]
+        excess[name] = n * (k_ms - bnd)
+        log(f"[6] redesigned {name}: {k_ms:.4f} ms / bound {bnd:.5f} = "
+            f"{k_ms / bnd:.2f}x; {n} launches on the search path; launches "
+            f"x (time - bound) {excess[name]:.4f} ms; card {card}")
 
     # kernel 6 at the decoder's three phase-conv shapes, beside its plain
     # version and the library convolution on the same padded input; the
@@ -1360,6 +1467,12 @@ def run() -> None:
                             "hypothesis mean ADD(-S) distance",
             "wrapper_ms": w_ms, "parity": "ok", "build_s": build_s,
         })
+        if name == "add_dist_min":
+            ref_ms, ref_bnd, _, ref_read = dist_times["add_dist_min_refiner"]
+            kernels[-1].update({
+                "refiner_ms": ref_ms, "refiner_bound_ms": ref_bnd,
+                "refiner_readings_ms": ref_read,
+                "launches_x_excess_ms": excess[name]})
     for name, line in (("nn", 89), ("nn_batched", 211)):
         k_ms, w_ms, p_ms, bnd, by, ref_ms = nn_times[name]
         kernels.append({
@@ -1372,7 +1485,7 @@ def run() -> None:
             "library_note": "no single PyTorch call: torch.cdist(q, r)"
                             ".min(-1) is two, timed as reference_ms",
             "reference_ms": ref_ms, "wrapper_ms": w_ms, "parity": "ok",
-            "build_s": build_s,
+            "build_s": build_s, "launches_x_excess_ms": excess[name],
         })
     up1 = conv_times["up1"]
     kernels.append({

@@ -19,49 +19,75 @@
 // (B, N, 3), model and target (B, M, 3), act (B,) int32, out (B, N, 13),
 // all float32 and allocated by the caller, as is the scratch `partial`.
 //
-// Design. The model points of a sample are cut into S = ceil(M / M_CHUNK)
-// chunks, and each block works on one chunk, so the refiner's shape (N = 1,
-// M = 2600) still spreads over S * B blocks. Each block writes its chunk's 13
-// sums to partial (S, B, N, 13); a second, deterministic pass adds the S
-// partial sums of every row in order, scales by 1/M and zeroes gated rows
-// (no float atomics, so a run repeats bit for bit).
+// Design. Both kernels cut the model points of a sample into chunks and
+// write each chunk's 13 sums to partial (S, B, N, 13), S = ceil(M / chunk);
+// a second, deterministic pass adds the S partial sums of every row in
+// order, scales by 1/M and zeroes gated rows (no float atomics, so a run
+// repeats bit for bit).
 //
 // * Paired: one thread per hypothesis (blocks of PAIRED_THREADS hypotheses
-//   of one sample), the chunk's model and target points staged once in
-//   shared memory, the 13 sums in registers.
-// * Min: one thread per query (n, m), one block per (chunk, n, b). The query
-//   is built in registers; the sample's targets stream through shared
-//   memory as float4 {x, y, z, ||r||^2}, as in adds_remap.cu; each thread
-//   keeps its best score and winning coordinates. The distance comes from
-//   the winning coordinates (not the factored score), and a warp-shuffle
-//   plus shared-memory reduction in fixed order sums the 13 values of the
-//   block's queries. Padded queries (m >= M) skip the search and add zeros.
+//   of one sample, chunks of M_CHUNK = 256 points), the chunk's model and
+//   target points staged once in shared memory, the 13 sums in registers.
+// * Min: the nearest-neighbour scan of csrc/nn_scan.cuh. A work item is a
+//   (row b, hypothesis n, chunk of MIN_CHUNK = 128 model points); one warp
+//   builds the item's 128 queries q = R_n model_m + t_n, 4 per lane, in
+//   registers, and scans the sample's targets, staged in shared memory as
+//   float4 {x, y, z, ||r||^2}, keeping per query the best score and the
+//   group of 8 targets that holds it, then finds the first target of that
+//   group with that score: exactly the strict-< scan's winner. Where the
+//   items are too few to fill the card (the refiner's N = 1, M = 2600), S
+//   warps share an item, each scanning every S-th group of targets, and
+//   merge their winners exactly (nn_scan.cuh). Only then are the winner's coordinates
+//   read, once per query, and the distance built from them (not from the
+//   factored score); a lane adds its 4 queries' terms in order and a warp
+//   butterfly of fixed order sums the item's 13 values.
+//   The grid is persistent (as many blocks as fit on the card at once).
+//   Blocks walk groups of 8 / S consecutive items of the active rows only
+//   (act[b] != 0, found by warp ballots over `act`), stepping by the grid
+//   size: gated rows cost no blocks, the live work lands on the first
+//   blocks wherever the active rows lie in the batch, and the host never
+//   reads `act`.
 //
 // Rounding. q, diff, d2, ||r||^2 and the scores are built with __fmul_rn /
 // __fadd_rn / __fsub_rn, which nvcc never contracts into FMAs, in the order
 // of the plain PyTorch versions (ops/add_dist.py `_transform`, `_dist_coef`,
 // ops/knn.py `_scores`). Kernel and plain version therefore pick the same
 // nearest target, ties included, and make the same floor decisions; they
-// differ only in the order of the sums.
+// differ only in the order of the sums. Why no FMAs and no tensor cores:
+// csrc/nn_scan.cuh.
 //
 // Bound on the H100: arithmetic, fp32 on the CUDA cores (K = 3 is no shape
 // for tensor cores). Paired: ~60 operations per (hypothesis, m) pair of an
 // active row; at phase 1 (B=32, N=1000, M=500, 24 rows active) ~7.2e8
 // operations, ~11 us at 67 TFLOP/s, against ~3.6 MB of traffic (~1 us).
 // Min: ~8 operations per (hypothesis, m, k) triple plus ~60 per (hypothesis,
-// m); at phase 1 (8 rows active) ~1.6e10, ~0.24 ms.
+// m); at phase 1 (8 rows active) ~1.6e10, ~0.24 ms. The pinned score and
+// the group minimum cost ~8 lane instructions per triple, so the min
+// kernel's floor is ~2x its bound; the first design (one query per thread,
+// one block per 256 points of every row, gated or not, coordinates
+// selected per triple) ran at 4.5x at phase 1 and 12-16x at the refiner
+// shape, where its 88 live blocks left most SMs idle.
 
 #include <cuda_runtime.h>
+
+#include "nn_scan.cuh"
 
 namespace {
 
 constexpr float EPS = 1e-12f;
 constexpr int NV = 13;               // values per hypothesis row
-constexpr int M_CHUNK = 256;         // model points per block (both kernels)
+constexpr int M_CHUNK = 256;         // model points per paired block
 constexpr int PAIRED_THREADS = 128;  // hypotheses per paired block
-constexpr int MIN_THREADS = M_CHUNK; // queries per min block
-constexpr int TR = 1024;             // targets per shared-memory tile (16 KB)
+constexpr int MIN_CHUNK = nn_scan::SLOT;  // model points per min work item
+// Min blocks per SM that the compiler must fit (__launch_bounds__). Told
+// three, ptxas may give the kernel up to 85 registers and takes 78-79;
+// left to itself it packs the kernel into 64 for four blocks per SM, and
+// its scan then ran 4% slower at phase 1 on the H100, even with the grid
+// held to three blocks per SM (examples/gpu_scan_turns.py).
+constexpr int MIN_BLOCKS_PER_SM = 3;
 constexpr int FIN_THREADS = 256;
+
+using nn_scan::sq3;
 
 // q_c = ((R_c0 x + R_c1 y) + R_c2 z) + t_c, rounded as the plain version.
 __device__ __forceinline__ float affine(const float* rc, float tc, float x,
@@ -70,11 +96,6 @@ __device__ __forceinline__ float affine(const float* rc, float tc, float x,
                                        __fmul_rn(rc[1], y)),
                              __fmul_rn(rc[2], z)),
                    tc);
-}
-
-__device__ __forceinline__ float sq3(float a, float b, float c) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)),
-                   __fmul_rn(c, c));
 }
 
 // Adds one model point's terms to the 13 sums.
@@ -139,91 +160,113 @@ paired_partial(const float* __restrict__ R, const float* __restrict__ t,
   for (int k = 0; k < NV; ++k) out[k] = acc[k];
 }
 
-__global__ void __launch_bounds__(MIN_THREADS)
+struct Active {
+  int row;     // the r-th active row (0-based), if there is one
+  int count;   // active rows before it (all of them if r >= that count)
+};
+
+// The r-th row with act[row] != 0, by ballots over `act` (B rows); every
+// lane of the warp takes part and gets the same answer.
+__device__ __forceinline__ Active nth_active(const int* act, int B, int r,
+                                             int lane) {
+  int count = 0;
+  for (int b0 = 0; b0 < B; b0 += nn_scan::WARP) {
+    const unsigned m = __ballot_sync(
+        0xffffffffu, b0 + lane < B && act[b0 + lane] != 0);
+    const int c = __popc(m);
+    if (r - count < c) return {b0 + (int)__fns(m, 0, r - count + 1), r};
+    count += c;
+  }
+  return {0, count};
+}
+
+template <int S>
+__global__ void __launch_bounds__(nn_scan::THREADS, MIN_BLOCKS_PER_SM)
 min_partial(const float* __restrict__ R, const float* __restrict__ t,
             const float* __restrict__ model,
             const float* __restrict__ target, const int* __restrict__ act,
-            float* __restrict__ partial, int N, int M) {
-  __shared__ float4 tile[TR];
-  __shared__ float red[MIN_THREADS / 32][NV];
-  const int s = blockIdx.x;
-  const int n = blockIdx.y;
-  const int b = blockIdx.z;
-  if (act[b] == 0) return;                 // uniform across the block
-  const int m = s * M_CHUNK + threadIdx.x;
-  const bool live = m < M;
-  const long long row = (long long)b * N + n;
+            float* __restrict__ partial, int B, int N, int M, int C) {
+  using nn_scan::QT;
+  using nn_scan::WARP;
+  constexpr int SLOTS = nn_scan::WARPS / S;   // items per group
+  __shared__ float4 tile[nn_scan::TR];
+  __shared__ nn_scan::MergeBuf<S> buf;
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const int seg = warp % S;
+  const long long items = (long long)N * C;   // per row
+  const long long per_row = (items + SLOTS - 1) / SLOTS;
 
-  float r[9], tt[3];
+  // The blocks walk only the active rows' groups (each warp counts and
+  // finds the active rows by ballots over `act`), so the live work goes to
+  // the first blocks wherever the active rows lie in the batch.
+  const long long groups = per_row * nth_active(act, B, B, lane).count;
+
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int b = nth_active(act, B, (int)(g / per_row), lane).row;
+    const long long k = (g % per_row) * SLOTS + warp / S;
+    const bool live = k < items;             // uniform across the warp
+    const int n = live ? (int)(k / C) : 0;
+    const int c = live ? (int)(k % C) : 0;
+    const long long row = (long long)b * N + n;
+
+    // this lane's query j is model point m0 + j * WARP
+    const int m0 = c * MIN_CHUNK + lane;
+    float mp[QT][3];
+    nn_scan::Lane l;
+    l.reset();
+    {
+      float r[9], tt[3];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) r[k] = R[row * 9 + k];
+      for (int i = 0; i < 9; ++i) r[i] = live ? R[row * 9 + i] : 0.f;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) tt[c] = t[row * 3 + c];
-
-  float x = 0.f, y = 0.f, z = 0.f;
-  if (live) {
-    const float* mp = model + ((long long)b * M + m) * 3;
-    x = mp[0];
-    y = mp[1];
-    z = mp[2];
-  }
-  const float qx = affine(r + 0, tt[0], x, y, z);
-  const float qy = affine(r + 3, tt[1], x, y, z);
-  const float qz = affine(r + 6, tt[2], x, y, z);
-
-  float best = __int_as_float(0x7f800000);  // +inf
-  float bx = 0.f, by = 0.f, bz = 0.f;
-  const float* tb = target + (long long)b * M * 3;
-  for (int k0 = 0; k0 < M; k0 += TR) {
-    const int cnt = min(TR, M - k0);
-    for (int i = threadIdx.x; i < cnt; i += MIN_THREADS) {
-      const float tx = tb[(long long)(k0 + i) * 3 + 0];
-      const float ty = tb[(long long)(k0 + i) * 3 + 1];
-      const float tz = tb[(long long)(k0 + i) * 3 + 2];
-      tile[i] = make_float4(tx, ty, tz, sq3(tx, ty, tz));
-    }
-    __syncthreads();
-    if (live) {
-      for (int i = 0; i < cnt; ++i) {
-        const float4 c = tile[i];
-        const float dot = __fadd_rn(__fadd_rn(__fmul_rn(qx, c.x),
-                                              __fmul_rn(qy, c.y)),
-                                    __fmul_rn(qz, c.z));
-        const float sc = __fsub_rn(c.w, __fmul_rn(2.f, dot));
-        if (sc < best) {
-          best = sc;
-          bx = c.x;
-          by = c.y;
-          bz = c.z;
-        }
+      for (int i = 0; i < 3; ++i) tt[i] = live ? t[row * 3 + i] : 0.f;
+#pragma unroll
+      for (int j = 0; j < QT; ++j) {
+        const int m = m0 + j * WARP;
+        const float* p = model + ((long long)b * M + m) * 3;
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          mp[j][i] = live && m < M ? p[i] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          l.q[j][i] = affine(r + 3 * i, tt[i], mp[j][0], mp[j][1], mp[j][2]);
       }
     }
-    __syncthreads();
-  }
 
-  float acc[NV];
+    const float* tb = target + (long long)b * M * 3;
+    for (int t0 = 0; t0 < M; t0 += nn_scan::TR) {
+      const int cnt = min(nn_scan::TR, M - t0);
+      nn_scan::stage(tile, tb, t0, cnt);
+      __syncthreads();
+      if (live) l.scan<S>(tile, cnt, t0, seg);
+      __syncthreads();
+    }
+    nn_scan::merge<S>(buf, l, warp, seg, lane);
+    if (seg == 0 && live) {
+      l.resolve(tile, tb, M);
+      float acc[NV];
 #pragma unroll
-  for (int k = 0; k < NV; ++k) acc[k] = 0.f;
-  if (live) {
-    accumulate(acc, __fsub_rn(qx, bx), __fsub_rn(qy, by), __fsub_rn(qz, bz),
-               x, y, z);
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+      for (int i = 0; i < NV; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    float v = acc[k];
+      for (int j = 0; j < QT; ++j) {
+        if (m0 + j * WARP < M) {
+          const float* w = tb + (long long)l.idx[j] * 3;
+          accumulate(acc, __fsub_rn(l.q[j][0], w[0]),
+                     __fsub_rn(l.q[j][1], w[1]), __fsub_rn(l.q[j][2], w[2]),
+                     mp[j][0], mp[j][1], mp[j][2]);
+        }
+      }
+      float* out = partial + ((long long)c * B * N + row) * NV;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < NV) {
-    float v = 0.f;
+      for (int i = 0; i < NV; ++i) {
+        float v = acc[i];
 #pragma unroll
-    for (int w = 0; w < MIN_THREADS / 32; ++w) v += red[w][threadIdx.x];
-    partial[((long long)s * gridDim.z * N + row) * NV + threadIdx.x] = v;
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, off);   // equal on every lane
+        if (lane == i) out[i] = v;
+      }
+    }
+    __syncthreads();   // the tile and the merge buffer are free again
   }
 }
 
@@ -253,9 +296,31 @@ int finalize_launch(const float* partial, const int* act, float* out, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(int B, int N, int M, int S) {
+bool bad_shape(int B, int N, int M, int S, int chunk) {
   return B < 1 || B > 65535 || N < 1 || N > 65535 || M < 1 ||
-         S != (M + M_CHUNK - 1) / M_CHUNK;
+         S != (M + chunk - 1) / chunk;
+}
+
+// The min kernel's persistent grid for split S: as many blocks as fit on
+// the card at once (the occupancy read once per process), or fewer where
+// the groups of all rows are fewer.
+template <int S>
+int min_launch_split(const float* R, const float* t, const float* model,
+                     const float* target, const int* act, float* partial,
+                     int B, int N, int M, int C, cudaStream_t stream) {
+  static const long long full = [] {
+    int per_sm = 0;   // blocks resident on one SM
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, min_partial<S>,
+                                                  nn_scan::THREADS, 0);
+    return (long long)nn_scan::sm_count() * (per_sm > 0 ? per_sm : 1);
+  }();
+  const long long slots = nn_scan::WARPS / S;
+  const long long groups = (long long)B * (((long long)N * C + slots - 1)
+                                           / slots);
+  const unsigned grid = (unsigned)(groups < full ? groups : full);
+  min_partial<S><<<grid, nn_scan::THREADS, 0, stream>>>(
+      R, t, model, target, act, partial, B, N, M, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -263,13 +328,15 @@ bool bad_shape(int B, int N, int M, int S) {
 // Both launchers run on `stream` (PyTorch's current stream), return
 // cudaGetLastError() (cudaErrorInvalidValue for shapes they do not take;
 // the Python wrapper checks them first), and need partial to hold
-// S * B * N * 13 floats, S = ceil(M / 256).
+// S * B * N * 13 floats: S = ceil(M / 256) for the paired kernel,
+// S = ceil(M / 128) for the min kernel.
 extern "C" int add_dist_paired_launch(const float* R, const float* t,
                                       const float* model, const float* target,
                                       const int* act, float* partial,
                                       float* out, int B, int N, int M, int S,
                                       void* stream) {
-  if (bad_shape(B, N, M, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, N, M, S, M_CHUNK))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + PAIRED_THREADS - 1) / PAIRED_THREADS, B, S);
   paired_partial<<<grid, PAIRED_THREADS, 0, st>>>(R, t, model, target, act,
@@ -283,12 +350,14 @@ extern "C" int add_dist_min_launch(const float* R, const float* t,
                                    const float* model, const float* target,
                                    const int* act, float* partial, float* out,
                                    int B, int N, int M, int S, void* stream) {
-  if (bad_shape(B, N, M, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, N, M, S, MIN_CHUNK))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(S, N, B);
-  min_partial<<<grid, MIN_THREADS, 0, st>>>(R, t, model, target, act,
-                                            partial, N, M);
-  const int err = static_cast<int>(cudaGetLastError());
+  const int err = nn_scan::dispatch(
+      nn_scan::min_split(B, N, M), [&](auto split) {
+        return min_launch_split<decltype(split)::value>(
+            R, t, model, target, act, partial, B, N, M, S, st);
+      });
   if (err != 0) return err;
   return finalize_launch(partial, act, out, B, N, M, S, st);
 }

@@ -3,10 +3,11 @@
 //
 // Replaces two Pallas TPU kernels of the JAX package:
 //   * `_nn_kernel`    (densefusion_tpu/ops/knn.py:89, nearest_neighbor_pallas,
-//     query (Q, 3) against ref (R, 3)): entry point `nn_launch`, B = 1;
+//     called at :162; query (Q, 3) against ref (R, 3)): entry point
+//     `nn_launch`, B = 1;
 //   * `_nn_kernel_bt` (densefusion_tpu/ops/knn.py:211,
-//     nearest_neighbor_pallas_batched, (B, Q, 3) against (B, R, 3)): entry
-//     point `nn_batched_launch`.
+//     nearest_neighbor_pallas_batched, called at :270; (B, Q, 3) against
+//     (B, R, 3)): entry point `nn_batched_launch`.
 // The TPU needed two kernels for two HBM layouts; here one kernel serves
 // both. What it computes, not how the TPU blocks it:
 //
@@ -18,98 +19,98 @@
 // so one launch writes both outputs: (B, Q) float32 and (B, Q) int64 (the
 // index type PyTorch's gather takes), allocated by the caller.
 //
-// Design (that of csrc/adds_remap.cu). One block per (sample, tile of TQ
-// queries), one query per thread, the running best score and index in
-// registers. The sample's reference cloud is staged through shared memory in
-// tiles of TR points as float4 {x, y, z, ||r||^2}, so R is unbounded. The
-// ragged ends of Q and R are masked by the bounds (the TPU kernel padded
-// refs with rsq = +inf).
-//
-// Arithmetic. K = 3, so no tensor cores: plain fp32 on the CUDA cores. The
-// rounding is pinned with __fmul_rn / __fadd_rn, which nvcc never contracts
-// into FMAs, in the order of the plain PyTorch version (ops/knn.py
-// `_scores` and `_qsq`): rsq = (x*x + y*y) + z*z, dot = (qx*rx + qy*ry) +
-// qz*rz, s = rsq - 2*dot, dist = s + ((qx*qx + qy*qy) + qz*qz). Kernel and
-// plain version thus give bit-identical distances and equal indices, ties
-// included: a score replaces the running best only when strictly smaller,
-// and refs are scanned in ascending order.
-//
 // Bound on the H100. About 8 fp32 operations per (query, ref) pair against
 // about 67 TFLOP/s of non-tensor fp32; 12 bytes in per point and 12 out per
 // query. At the KNN benchmark's Q = 250,000, R = 500 that is ~15 us of
-// arithmetic and ~1.5 us of memory traffic: operations-bound. Without FMAs
-// the loop issues ~10 instructions per pair, so expect a few times the
-// bound.
+// arithmetic and ~1.5 us of memory traffic: operations-bound.
+//
+// Design: the scan of csrc/nn_scan.cuh. A block of 8 warps covers 8 / S
+// slots of 128 queries (4 per lane) of one sample; S warps share a slot
+// where the grid would otherwise not fill the card (nn_scan::nn_split picks
+// S from the shape: at least two blocks per SM, while each warp keeps at
+// least 32 refs), and their winners merge exactly. The sample's reference
+// cloud is staged in tiles, so R is unbounded; the ragged ends of Q and R
+// are masked by the bounds (the TPU kernel padded refs with rsq = +inf).
+// The rounding is pinned (no FMAs, no tensor cores: the header says why),
+// so kernel and plain version (ops/knn.py `_scores`, `_qsq`) give
+// bit-identical distances, dist = s + ((qx*qx + qy*qy) + qz*qz), and equal
+// indices, ties included. The pinned score and the group minimum cost ~8
+// lane instructions per pair, so expect ~2x the bound; the first design
+// (one query per lane, a compare and two selects per pair) ran at 4.1x.
 
 #include <cuda_runtime.h>
 
+#include "nn_scan.cuh"
+
 namespace {
 
-constexpr int TQ = 128;   // queries per block (one per thread)
-constexpr int TR = 1024;  // refs per shared-memory tile (16 KB)
+using nn_scan::QT;
+using nn_scan::SLOT;
+using nn_scan::THREADS;
+using nn_scan::TR;
+using nn_scan::WARP;
+using nn_scan::WARPS;
 
-__global__ void __launch_bounds__(TQ)
+template <int S>
+__global__ void __launch_bounds__(THREADS)
 nn_kernel(const float* __restrict__ query,   // (B, Q, 3)
           const float* __restrict__ ref,     // (B, R, 3)
           float* __restrict__ dist,          // (B, Q)
           long long* __restrict__ idx,       // (B, Q)
           int Q, int R) {
   __shared__ float4 tile[TR];
+  __shared__ nn_scan::MergeBuf<S> buf;
   const int b = blockIdx.y;
-  const int q = blockIdx.x * TQ + threadIdx.x;
-  const bool in_range = q < Q;
-  const long long qo = (long long)b * Q + q;
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const int seg = warp % S;
+  // this lane's query j is q0 + j * WARP
+  const long long q0 =
+      ((long long)blockIdx.x * (WARPS / S) + warp / S) * SLOT + lane;
+  const float* qb = query + (long long)b * Q * 3;
 
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (in_range) {
-    qx = query[qo * 3 + 0];
-    qy = query[qo * 3 + 1];
-    qz = query[qo * 3 + 2];
+  nn_scan::Lane l;
+  l.reset();
+#pragma unroll
+  for (int j = 0; j < QT; ++j) {
+    const long long q = q0 + j * WARP;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) l.q[j][c] = q < Q ? qb[q * 3 + c] : 0.f;
   }
-  float best = __int_as_float(0x7f800000);    // +inf
-  int best_i = 0;
 
   const float* rb = ref + (long long)b * R * 3;
   for (int t0 = 0; t0 < R; t0 += TR) {
     const int n = min(TR, R - t0);
-    for (int i = threadIdx.x; i < n; i += TQ) {
-      const float x = rb[(long long)(t0 + i) * 3 + 0];
-      const float y = rb[(long long)(t0 + i) * 3 + 1];
-      const float z = rb[(long long)(t0 + i) * 3 + 2];
-      const float rsq = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                                  __fmul_rn(z, z));
-      tile[i] = make_float4(x, y, z, rsq);
-    }
+    nn_scan::stage(tile, rb, t0, n);
     __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < n; ++i) {
-      const float4 r = tile[i];
-      const float dot = __fadd_rn(__fadd_rn(__fmul_rn(qx, r.x),
-                                            __fmul_rn(qy, r.y)),
-                                  __fmul_rn(qz, r.z));
-      const float s = __fsub_rn(r.w, __fmul_rn(2.f, dot));
-      if (s < best) {
-        best = s;
-        best_i = t0 + i;
-      }
-    }
+    l.scan<S>(tile, n, t0, seg);
     __syncthreads();
   }
+  nn_scan::merge<S>(buf, l, warp, seg, lane);
+  if (seg != 0) return;
+  l.resolve(tile, rb, R);
 
-  if (in_range) {
-    const float qsq = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)),
-                                __fmul_rn(qz, qz));
-    dist[qo] = __fadd_rn(best, qsq);
-    idx[qo] = best_i;
+#pragma unroll
+  for (int j = 0; j < QT; ++j) {
+    const long long q = q0 + j * WARP;
+    if (q < Q) {
+      const long long o = (long long)b * Q + q;
+      dist[o] = __fadd_rn(l.best[j],
+                          nn_scan::sq3(l.q[j][0], l.q[j][1], l.q[j][2]));
+      idx[o] = l.idx[j];
+    }
   }
 }
 
 int launch(const float* query, const float* ref, float* dist, long long* idx,
            int B, int Q, int R, void* stream) {
-  const dim3 grid((Q + TQ - 1) / TQ, B);
-  nn_kernel<<<grid, TQ, 0, static_cast<cudaStream_t>(stream)>>>(
-      query, ref, dist, idx, Q, R);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return nn_scan::dispatch(nn_scan::nn_split(B, Q, R), [&](auto split) {
+    constexpr int S = decltype(split)::value;
+    const long long per_block = SLOT * (WARPS / S);
+    const dim3 grid((unsigned)((Q + per_block - 1) / per_block), B);
+    nn_kernel<S><<<grid, THREADS, 0, st>>>(query, ref, dist, idx, Q, R);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -130,4 +131,13 @@ extern "C" int nn_batched_launch(const float* query, const float* ref,
                                  float* dist, long long* idx, int B, int Q,
                                  int R, void* stream) {
   return launch(query, ref, dist, idx, B, Q, R, stream);
+}
+
+// The warps per slot (S) that the shared scan takes for a shape: kernel 2
+// (csrc/add_dist.cu's min kernel; B rows of n hypotheses, m model and
+// target points) if `min_kernel` is non-zero, else kernels 3 and 4 (B
+// samples of n queries against m refs). Both rules live in nn_scan.cuh.
+extern "C" int scan_split(int min_kernel, int B, int n, int m) {
+  return min_kernel ? nn_scan::min_split(B, n, m)
+                    : nn_scan::nn_split(B, n, m);
 }

@@ -1,0 +1,264 @@
+// The nearest-neighbour scan shared by csrc/nn.cu (1-NN search, TPU kernels
+// 3 and 4) and csrc/add_dist.cu (ADD-S min distance, TPU kernel 2): for a
+// set of queries q, the (score, index) of the reference r that minimises
+//
+//   s(q, r) = ||r||^2 - 2 q.r,   ties to the lowest index,
+//
+// with every score rounded exactly as the plain PyTorch version rounds it
+// (ops/knn.py `_scores`): rsq = (x*x + y*y) + z*z, dot = (qx*rx + qy*ry) +
+// qz*rz, s = rsq - 2*dot, each step one __fmul_rn / __fadd_rn / __fsub_rn.
+// nvcc never contracts those into FMAs, so kernel and plain version agree
+// bit for bit, ties included.
+//
+// How a block scans. A warp holds QT queries per lane in registers (a
+// "slot" of 32 * QT queries) and walks a tile of the reference cloud
+// staged in shared memory as float4 {x, y, z, ||r||^2}: each broadcast
+// 16-byte load serves QT queries. The refs come in groups of G = 8: within
+// a group a query keeps only the minimum score (one FMNMX per pair), and
+// only the group's minimum is compared with the running best (strictly
+// smaller wins), selecting the score and the group's number. After the scan
+// the winning group is scanned once more for the first ref whose score
+// equals the best: that is the first minimum over all refs, exactly what
+// one ascending scan with a strict < keeps, and its score is reported.
+// So a pair costs ~8 lane instructions (5 for the dot, 2 for the score, 1
+// min) where a per-pair compare, select score, select index cost ~10. A
+// NaN score never wins (fminf drops it, < is false), as in a strict-< scan.
+// Where the grid would be too small to fill the card, S warps share one
+// slot: warp `seg` of the slot scans groups seg, seg + S, ... of each tile,
+// and the S partial winners merge in shared memory with the order of
+// `beats`: the smaller score wins, an equal score goes to the lower group.
+// Each warp's winner is the first minimal group among its own groups, so
+// the merge gives the first minimal group overall, whatever S.
+//
+// Not taken, and why:
+// * FMAs. An FMA-chained score picks another nearest ref than the pinned
+//   score for a few queries in 20,000 at the ADD-S geometry
+//   (examples/fma_parity.py), which would end bit parity with the plain
+//   versions; keeping it would need the plain version to emulate a float32
+//   FMA exactly, a second definition in float64. So the score stays
+//   pinned, and the floor is ~8 lane instructions per pair.
+// * Tensor cores. K = 3; after register tiling the pinned score's seven
+//   rounded steps and the min set the floor, not the dot, and a TF32 or 3xTF32 product of (-2q, 1) and
+//   (r, ||r||^2) would round differently from the plain version.
+// * cp.async / TMA staging, or a tile that holds a whole 2600-point cloud.
+//   A tile is 16 KB and its copy a few percent of the scan at the driven
+//   shapes; staging the refiner's whole cloud at once (41.6 KB of dynamic
+//   shared memory) bought nothing there and cost ~5% at phase 1.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace nn_scan {
+
+constexpr int QT = 4;                // queries per lane
+constexpr int WARP = 32;
+constexpr int SLOT = WARP * QT;      // queries per slot (one warp's worth)
+constexpr int WARPS = 8;             // warps per block
+constexpr int THREADS = WARP * WARPS;
+constexpr int G = 8;                 // refs per group
+constexpr int TR = 1024;             // refs per staged tile (16 KB), G | TR
+
+// The SM count of the device current at the first call, read once per
+// process. A card with another count only gets another split or persistent
+// grid size, never another result.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 132;
+  }();
+  return n;
+}
+
+// Warps per slot: the least S in {1, 2, 4, 8} at which `rows` rows of
+// `slots` slots each, WARPS / S slots to a block, give at least `per_sm`
+// blocks per SM, while each warp keeps at least 32 of the `refs` refs.
+inline int split(long long rows, long long slots, long long refs,
+                 int per_sm) {
+  const long long want = (long long)per_sm * sm_count();
+  int s = 1;
+  while (s < WARPS && refs >= 64LL * s) {
+    const long long per_block = WARPS / s;
+    if (rows * ((slots + per_block - 1) / per_block) >= want) break;
+    s *= 2;
+  }
+  return s;
+}
+
+// The 1-NN search (nn.cu): B samples of Q queries against R refs, at least
+// two blocks per SM.
+inline int nn_split(int B, long long Q, int R) {
+  return split(B, (Q + SLOT - 1) / SLOT, R, 2);
+}
+
+// The ADD-S min kernel (add_dist.cu): B rows of N hypotheses, each cut into
+// slots of SLOT model points, against M targets. The host never reads
+// which rows are active, and about a quarter of them are in training, so
+// it asks for four blocks' worth per SM over all rows.
+inline int min_split(int B, int N, int M) {
+  return split(B, (long long)N * ((M + SLOT - 1) / SLOT), M, 4);
+}
+
+// Returns launch(std::integral_constant<int, S>{}) for the split S = s.
+template <class F>
+int dispatch(int s, F&& launch) {
+  switch (s) {
+    case 1: return launch(std::integral_constant<int, 1>{});
+    case 2: return launch(std::integral_constant<int, 2>{});
+    case 4: return launch(std::integral_constant<int, 4>{});
+    default: return launch(std::integral_constant<int, 8>{});
+  }
+}
+
+__device__ __forceinline__ float sq3(float a, float b, float c) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)),
+                   __fmul_rn(c, c));
+}
+
+__device__ __forceinline__ float4 staged(const float* p) {
+  const float x = p[0], y = p[1], z = p[2];
+  return make_float4(x, y, z, sq3(x, y, z));
+}
+
+// The pinned score ||r||^2 - 2 q.r of a staged ref r = {x, y, z, ||r||^2}.
+__device__ __forceinline__ float score(const float* q, float4 r) {
+  const float dot = __fadd_rn(__fadd_rn(__fmul_rn(q[0], r.x),
+                                        __fmul_rn(q[1], r.y)),
+                              __fmul_rn(q[2], r.z));
+  return __fsub_rn(r.w, __fmul_rn(2.f, dot));
+}
+
+// (s, g) comes before (s2, g2) in the order of one ascending strict-< scan.
+__device__ __forceinline__ bool beats(float s, int g, float s2, int g2) {
+  return s < s2 || (s == s2 && g < g2);
+}
+
+// Stages refs [t0, t0 + n) of the cloud `rb` (R, 3) into `tile` with all
+// THREADS threads of the block, and pads the last group with refs whose
+// score is +inf (||r||^2 = +inf), which never win.
+__device__ __forceinline__ void stage(float4* tile, const float* rb, int t0,
+                                      int n) {
+  const int padded = (n + G - 1) / G * G;
+  for (int i = threadIdx.x; i < padded; i += THREADS)
+    tile[i] = i < n ? staged(rb + (long long)(t0 + i) * 3)
+                    : make_float4(0.f, 0.f, 0.f, __int_as_float(0x7f800000));
+}
+
+// Per lane: QT queries, their running best scores and groups; after
+// `resolve`, `idx` holds each query's nearest ref and `best` its score.
+struct Lane {
+  float q[QT][3];
+  float best[QT];
+  int grp[QT];
+  int idx[QT];
+
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int j = 0; j < QT; ++j) {
+      best[j] = __int_as_float(0x7f800000);   // +inf
+      grp[j] = 0;
+    }
+  }
+
+  // Groups seg, seg + S, ... of a staged tile whose first ref is t0.
+  template <int S>
+  __device__ __forceinline__ void scan(const float4* tile, int n, int t0,
+                                       int seg) {
+    const int groups = (n + G - 1) / G;
+    for (int g = seg; g < groups; g += S) {
+      const float4* p = tile + g * G;
+      float m[QT];
+      const float4 r0 = p[0];
+#pragma unroll
+      for (int j = 0; j < QT; ++j) m[j] = score(q[j], r0);
+#pragma unroll
+      for (int i = 1; i < G; ++i) {
+        const float4 r = p[i];
+#pragma unroll
+        for (int j = 0; j < QT; ++j) m[j] = fminf(m[j], score(q[j], r));
+      }
+      const int gg = t0 / G + g;
+#pragma unroll
+      for (int j = 0; j < QT; ++j) {
+        if (m[j] < best[j]) {
+          best[j] = m[j];
+          grp[j] = gg;
+        }
+      }
+    }
+  }
+
+  // The first ref of each query's winning group whose score equals the
+  // best, from `tile` when it holds the whole cloud (R <= TR), else from
+  // the cloud `rb` (R, 3) in global memory. With no such ref (every score
+  // +inf or NaN) the group's first ref stands, with the best score.
+  __device__ __forceinline__ void resolve(const float4* tile, const float* rb,
+                                          int R) {
+#pragma unroll
+    for (int j = 0; j < QT; ++j) {
+      const int base = grp[j] * G;
+      int k = base;
+      float sk = best[j];
+#pragma unroll
+      for (int i = G - 1; i >= 0; --i) {
+        const int r = base + i;
+        if (r < R) {
+          const float s = score(q[j], R <= TR ? tile[r]
+                                              : staged(rb + (long long)r * 3));
+          if (s == best[j]) {
+            k = r;
+            sk = s;
+          }
+        }
+      }
+      idx[j] = k;
+      best[j] = sk;
+    }
+  }
+};
+
+// Winners of the S warps of each slot, for the merge.
+template <int S>
+struct MergeBuf {
+  float s[WARPS][QT][WARP];
+  int g[WARPS][QT][WARP];
+};
+template <>
+struct MergeBuf<1> {};
+
+// Merges the S partial winners of each slot into the lanes of the slot's
+// first warp (seg 0). Every thread of the block calls it (it synchronises).
+template <int S>
+__device__ __forceinline__ void merge(MergeBuf<S>& buf, Lane& l, int warp,
+                                      int seg, int lane) {
+  if constexpr (S > 1) {
+    if (seg != 0) {
+#pragma unroll
+      for (int j = 0; j < QT; ++j) {
+        buf.s[warp][j][lane] = l.best[j];
+        buf.g[warp][j][lane] = l.grp[j];
+      }
+    }
+    __syncthreads();
+    if (seg == 0) {
+#pragma unroll
+      for (int k = 1; k < S; ++k) {
+#pragma unroll
+        for (int j = 0; j < QT; ++j) {
+          const float s = buf.s[warp + k][j][lane];
+          const int g = buf.g[warp + k][j][lane];
+          if (beats(s, g, l.best[j], l.grp[j])) {
+            l.best[j] = s;
+            l.grp[j] = g;
+          }
+        }
+      }
+    }
+  }
+}
+
+}  // namespace nn_scan

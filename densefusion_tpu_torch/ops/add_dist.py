@@ -37,8 +37,10 @@ EPS = 1e-12  # squared-distance floor: 1 um distance, zero gradient below
 # Hypotheses per chunk of the plain versions are capped so one (B, chunk, M)
 # block holds at most this many elements.
 _CHUNK_ELEMS = 1 << 22
-# Model points per block of the kernels; equals M_CHUNK in csrc/add_dist.cu.
-M_CHUNK = 256
+# Model points per chunk of the kernels' partial sums (partial is (S, B, N,
+# 13), S = ceil(M / chunk)): M_CHUNK and MIN_CHUNK in csrc/add_dist.cu.
+PAIRED_CHUNK = 256
+MIN_CHUNK = 128
 
 
 def _transform(R: torch.Tensor, t: torch.Tensor,
@@ -104,9 +106,10 @@ def min_plain(R, t, model, target, act):
 class AddDistKernel(build.Kernel):
     """ctypes wrapper of one kernel of ``csrc/add_dist.cu``."""
 
-    def __init__(self, name: str, symbol: str):
+    def __init__(self, name: str, symbol: str, chunk: int):
         super().__init__(name, "add_dist", symbol,
                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4)
+        self.chunk = chunk
 
     def __call__(self, R, t, model, target, act):
         """R (B, N, 3, 3), t (B, N, 3), model / target (B, M, 3) float32 and
@@ -134,7 +137,7 @@ class AddDistKernel(build.Kernel):
         out = torch.empty((bsz, n, 13), dtype=torch.float32, device=dev)
         if n == 0:
             return out[..., 0], out[..., 1:]
-        splits = -(-m // M_CHUNK)
+        splits = -(-m // self.chunk)
         partial = torch.empty((splits, bsz, n, 13), dtype=torch.float32,
                               device=dev)
         self.launch(dev, R.data_ptr(), t.data_ptr(), model.data_ptr(),
@@ -143,8 +146,9 @@ class AddDistKernel(build.Kernel):
         return out[..., 0], out[..., 1:]
 
 
-paired_kernel = AddDistKernel("add_dist_paired", "add_dist_paired_launch")
-min_kernel = AddDistKernel("add_dist_min", "add_dist_min_launch")
+paired_kernel = AddDistKernel("add_dist_paired", "add_dist_paired_launch",
+                              PAIRED_CHUNK)
+min_kernel = AddDistKernel("add_dist_min", "add_dist_min_launch", MIN_CHUNK)
 
 
 def dist_and_coef(R, t, model, target, sym, use_adds: bool = True):

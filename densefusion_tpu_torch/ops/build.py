@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<digest>.so`` inside
 the package, at first use, and loaded with ``ctypes``; :class:`Kernel`
-wraps one entry point. The digest covers the source and the flags, so an
-edited source is rebuilt. Nothing here runs
-at import time: the CPU tests import every module on machines with no
-``nvcc``.
+wraps one entry point. The digest covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt.
+Nothing here runs at import time: the CPU tests import every module on
+machines with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -45,26 +45,37 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:16]}.so"
+def library_path(name: str, csrc: Path | None = None,
+                 build: Path | None = None) -> Path:
+    """Where ``<csrc>/<name>.cu`` builds to, in ``build`` (by default the
+    package's ``csrc/`` and ``build/``). The digest covers the source, every
+    header in ``csrc`` (any source may include any of them) and the
+    flags."""
+    csrc, build = csrc or CSRC, build or BUILD
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES) -> dict[str, dict]:
-    """Compile every listed kernel that is not built yet, one ``nvcc`` per
-    source, all started together. Returns ``{name: {"seconds", "log"}}``
-    (``log`` holds ``-Xptxas -v``'s register and shared-memory report).
-    Raises with the compiler's output if any build fails."""
-    BUILD.mkdir(parents=True, exist_ok=True)
+def build_all(names=SOURCES, csrc: Path | None = None,
+              build: Path | None = None) -> dict[str, dict]:
+    """Compile every listed kernel of ``csrc`` that is not built yet into
+    ``build`` (as :func:`library_path`), one ``nvcc`` per source, all
+    started together. Returns ``{name: {"seconds", "log"}}`` (``log`` holds
+    ``-Xptxas -v``'s register and shared-memory report). Raises with the
+    compiler's output if any build fails."""
+    csrc, build = csrc or CSRC, build or BUILD
+    build.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc, build)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

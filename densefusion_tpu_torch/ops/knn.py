@@ -128,6 +128,17 @@ class NNKernel(build.Kernel):
         return dist, idx
 
 
+def scan_split(bsz: int, n: int, m: int, min_kernel: bool = False) -> int:
+    """Warps per slot of queries (1, 2, 4 or 8) that the shared scan of
+    ``csrc/nn_scan.cuh`` takes: for B samples of n queries against m refs
+    (``csrc/nn.cu``) or, with ``min_kernel``, for B rows of n hypotheses of
+    m model points (the min kernel of ``csrc/add_dist.cu``). Above 1, that
+    many warps share each query and merge their winners. Needs the card."""
+    fn = build.load("nn").scan_split
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    return fn(int(min_kernel), bsz, n, m)
+
+
 nn_kernel = NNKernel("nn", "nn_launch", batched=False)
 nn_batched_kernel = NNKernel("nn_batched", "nn_batched_launch", batched=True)
 
@@ -161,16 +172,18 @@ def nearest_neighbor(query: torch.Tensor, ref: torch.Tensor):
 
 def knn(query: torch.Tensor, ref: torch.Tensor, k: int = 1):
     """k-NN: (squared distances (..., Q, k), indices (..., Q, k) int64),
-    ascending. k=1 takes the 1-NN search; k>1 takes ``torch.topk`` over the
-    full distance matrix, as the JAX package takes ``lax.top_k`` outside any
-    kernel (never needed by the pipelines)."""
+    ascending, exact ties lowest index first. k=1 takes the 1-NN search;
+    k>1 a stable sort of the full distance matrix, as the JAX package takes
+    ``lax.top_k`` outside any kernel (never needed by the pipelines;
+    ``torch.topk`` leaves equal values in no set order)."""
     if k == 1:
         d, i = nearest_neighbor(query, ref)
         return d[..., None], i[..., None]
     q, r = query.float(), ref.float()
     d = ((q * q).sum(-1, keepdim=True) - 2.0 * q @ r.transpose(-1, -2)
          + (r * r).sum(-1)[..., None, :])
-    return torch.topk(d, k, dim=-1, largest=False, sorted=True)
+    d, i = torch.sort(d, dim=-1, stable=True)
+    return d[..., :k], i[..., :k]
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,256 @@
+#!/usr/bin/env python3
+"""Time the search-scan kernels (kernel 2, the ADD-S min distance; kernels
+3 and 4, the 1-NN search) of this checkout against those of another
+checkout, in turns on one card, with the train steps that launch kernel 2,
+and probe the min kernel's time at the refiner shape.
+
+    python3 examples/gpu_scan_turns.py OUT.json [--parent DIR]
+
+``DIR`` is the ``densefusion_tpu_torch/csrc`` directory of the other
+checkout (for example one unpacked with ``git archive``). Its ``nn.cu`` and
+``add_dist.cu`` are built by ``ops/build.py`` (the port's own flags) into a
+directory of their own and loaded with ctypes; both sets take the same C
+entry points. Readings go in turns (parent, change, change, parent; change,
+change without ``DIR``):
+
+* each kernel, a CUDA-graph window of many launches, at the driven shapes:
+  1-NN at Q=250,000, R=500 and batched at (8, 500,000, 500); the min kernel
+  at phase 1 (B=32, N=1000, M=500, 8 rows active), at the refiner shape
+  (B=32, N=1, M=2600, 8 rows active) and there with no active row (its
+  fixed cost);
+* the phase-1 (B=32, M=500) and phase-2 (B=32, M=2600, K=2) train steps,
+  timed as ``chip_smoke.py`` [6] times them (host clock, 5 steps after a
+  warm-up step, ended by a sync), ``ROUNDS`` rounds of turns, with the min
+  kernel's wrapper pointed at each set's entry point in turn. The min
+  kernel is the only kernel of these steps that the sets differ in.
+
+The refiner-shape probe, for each set: ten back-to-back graph windows; five
+with the 8 active rows spread over the batch (rows 0, 4, 8, ...) in place
+of the first 8, which moves the live blocks to other SMs; single launches
+each followed by a sync, and after 0.5 s of idle. The card's SM clock is
+sampled with ``nvidia-smi`` beside it. Needs one CUDA device; writes
+OUT.json and prints a summary.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from densefusion_tpu_torch.ops import add_dist, build  # noqa: E402
+
+ROUNDS = 6   # rounds of step turns per phase
+
+
+class ScanSet:
+    """The C entry points of one source set, called on the current stream."""
+
+    def __init__(self, libs: dict):
+        self.nn = libs["nn"].nn_launch
+        self.nn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p]
+        self.nnb = libs["nn"].nn_batched_launch
+        self.nnb.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        self.min = libs["add_dist"].add_dist_min_launch
+        self.min.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        self.min.restype = ctypes.c_int
+        self.chunk = None   # model points per partial sum, found at first use
+
+    @staticmethod
+    def _stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def knn(self, q, r, d, i):
+        if q.dim() == 2:
+            err = self.nn(q.data_ptr(), r.data_ptr(), d.data_ptr(),
+                          i.data_ptr(), q.shape[0], r.shape[0],
+                          self._stream())
+        else:
+            err = self.nnb(q.data_ptr(), r.data_ptr(), d.data_ptr(),
+                           i.data_ptr(), *q.shape[:2], r.shape[1],
+                           self._stream())
+        if err:
+            raise RuntimeError(f"nn launch failed: {err}")
+
+    def min_dist(self, R, t, model, target, act, out):
+        b, n, m = R.shape[0], R.shape[1], model.shape[1]
+        for chunk in ((self.chunk,) if self.chunk else (128, 256)):
+            s = -(-m // chunk)
+            partial = torch.empty((s, b, n, 13), device=R.device)
+            err = self.min(R.data_ptr(), t.data_ptr(), model.data_ptr(),
+                           target.data_ptr(), act.data_ptr(),
+                           partial.data_ptr(), out.data_ptr(), b, n, m, s,
+                           self._stream())
+            if err == 0:
+                self.chunk = chunk
+                return
+        raise RuntimeError(f"min launch failed: {err}")
+
+    def serve_min_kernel(self) -> None:
+        """Point the port's min-kernel wrapper at this set's entry point."""
+        add_dist.min_kernel._fn = self.min
+        add_dist.min_kernel.chunk = self.chunk
+
+
+def built_set(csrc: Path | None, out: Path | None) -> ScanSet:
+    """nn.cu and add_dist.cu of ``csrc`` (the package's by default), built
+    by ``ops/build.py`` into ``out`` and loaded."""
+    names = ("nn", "add_dist")
+    build.build_all(names, csrc, out)
+    return ScanSet({n: ctypes.CDLL(str(build.library_path(n, csrc, out)))
+                    for n in names})
+
+
+def sm_clock() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("out")
+    ap.add_argument("--parent", type=Path, default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    card = cs.card_line()
+    sets = {"change": built_set(None, None)}
+    if args.parent is not None:
+        sets["parent"] = built_set(
+            args.parent, Path(tempfile.mkdtemp(prefix="scan_turns_")))
+    order = (["parent", "change", "change", "parent"] if "parent" in sets
+             else ["change", "change"])
+
+    rng = np.random.default_rng(cs.SEED)
+
+    def pts(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)).cuda()
+
+    q, r = pts(cs.KNN_QUERIES, 3), pts(cs.KNN_REFS, 3)
+    q4 = pts(cs.TRAIN_SYM_ROWS, cs.NUM_POINTS * cs.NUM_MESH, 3)
+    r4 = pts(cs.TRAIN_SYM_ROWS, cs.NUM_MESH, 3)
+    b = cs.TRAIN_BATCH
+    p1 = cs.pose_problem(rng, b, cs.NUM_POINTS, cs.NUM_MESH)
+    ref = cs.pose_problem(rng, b, 1, cs.REFINE_MESH)
+    first8 = (torch.arange(b, device="cuda") < cs.TRAIN_SYM_ROWS).int()
+    spread = (torch.arange(b, device="cuda") % 4 == 0).int()
+    none = torch.zeros(b, dtype=torch.int32, device="cuda")
+
+    def outs(x):
+        return (torch.empty(x.shape[:-1], device="cuda"),
+                torch.empty(x.shape[:-1], dtype=torch.int64, device="cuda"))
+
+    d1, d4 = outs(q), outs(q4)
+    o1 = torch.empty((b, cs.NUM_POINTS, 13), device="cuda")
+    o2 = torch.empty((b, 1, 13), device="cuda")
+    work = {
+        "nn (250000, 500)": (lambda s: s.knn(q, r, *d1), 200),
+        "nn_batched (8, 500000, 500)": (lambda s: s.knn(q4, r4, *d4), 20),
+        "min phase 1 (32, 1000, 500)": (
+            lambda s: s.min_dist(*p1, first8, o1), 20),
+        "min refiner (32, 1, 2600)": (
+            lambda s: s.min_dist(*ref, first8, o2), 200),
+        "min refiner, no active row": (
+            lambda s: s.min_dist(*ref, none, o2), 200),
+    }
+    for s in sets.values():    # warm up, and fix each set's chunk
+        for fn, _ in work.values():
+            fn(s)
+    torch.cuda.synchronize()
+
+    result = {"card": card, "clock_before": sm_clock(), "turns": {}}
+    for name, (fn, replays) in work.items():
+        readings = {k: [] for k in sets}
+        for k in order:
+            readings[k].append(cs.graph_ms(lambda: fn(sets[k]),
+                                           replays=replays))
+        result["turns"][name] = readings
+        print(f"{name}: " + ", ".join(
+            f"{k} {np.mean(v):.5f} ms {v}" for k, v in readings.items()),
+            flush=True)
+
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.train import (
+        create_train_state, make_pose_train_step, make_refine_train_step,
+    )
+    state = create_train_state(PoseNet(cs.NUM_OBJ), PoseRefineNet(cs.NUM_OBJ),
+                               cs.LR, cs.SEED)
+    trng = np.random.default_rng(cs.SEED + 2)
+    steps = {
+        "phase-1 step (32, M=500)": (
+            make_pose_train_step(state, use_adds=True),
+            cs.train_batch(trng, cs.TRAIN_BATCH, cs.NUM_MESH)),
+        "phase-2 step (32, M=2600, K=2)": (
+            make_refine_train_step(state, cs.REFINE_ITERS),
+            cs.train_batch(trng, cs.TRAIN_BATCH, cs.REFINE_MESH)),
+    }
+    result["step_turns"] = {}
+    for name, (step, batch) in steps.items():
+        readings = {k: [] for k in sets}
+        for _ in range(ROUNDS):
+            for k in order:
+                sets[k].serve_min_kernel()
+                readings[k].append(cs.step_ms(step, batch))
+        result["step_turns"][name] = readings
+        print(f"{name}: " + ", ".join(
+            f"{k} median {np.median(v):.3f} ms {[round(x, 3) for x in v]}"
+            for k, v in readings.items()), flush=True)
+    sets["change"].serve_min_kernel()
+
+    probe = {}
+    for k, s in sets.items():
+        windows = [cs.graph_ms(lambda: s.min_dist(*ref, first8, o2),
+                               replays=200) for _ in range(10)]
+        spread_w = [cs.graph_ms(lambda: s.min_dist(*ref, spread, o2),
+                                replays=200) for _ in range(5)]
+        ev = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        single, idle = [], []
+        for i in range(40):
+            if i % 8 == 0:
+                torch.cuda.synchronize()
+                time.sleep(0.5)
+            ev[0].record()
+            s.min_dist(*ref, first8, o2)
+            ev[1].record()
+            torch.cuda.synchronize()
+            (idle if i % 8 == 0 else single).append(
+                ev[0].elapsed_time(ev[1]))
+        probe[k] = {"graph_windows_ms": windows,
+                    "graph_windows_spread_rows_ms": spread_w,
+                    "single_launch_ms": single,
+                    "single_after_idle_ms": idle, "clock": sm_clock()}
+        print(f"refiner probe {k}: windows {windows}; active rows spread "
+              f"{spread_w}; single median {np.median(single):.5f} ms; "
+              f"after idle {idle}; clock {probe[k]['clock']}", flush=True)
+    result["refiner_probe"] = probe
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps({"card": card, "turns_ms": {
+        n: {k: float(np.mean(v)) for k, v in t.items()}
+        for n, t in result["turns"].items()}, "step_turns_median_ms": {
+        n: {k: float(np.median(v)) for k, v in t.items()}
+        for n, t in result["step_turns"].items()}}))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -33,6 +33,9 @@ def main() -> None:
          cs.add_dist_bound_ms(b, n, m, b - cs.TRAIN_SYM_ROWS, False)),
         ("2 _min_kernel", "phase 1 (32, N=1000, M=500), 8 rows active",
          cs.add_dist_bound_ms(b, n, m, cs.TRAIN_SYM_ROWS, True)),
+        ("2 _min_kernel", f"refiner (32, N=1, M={cs.REFINE_MESH}), 8 rows "
+         "active", cs.add_dist_bound_ms(b, 1, cs.REFINE_MESH,
+                                        cs.TRAIN_SYM_ROWS, True)),
         ("3 _nn_kernel", f"bench_knn, Q={cs.KNN_QUERIES}, R={cs.KNN_REFS}",
          cs.nn_bound_ms(1, cs.KNN_QUERIES, cs.KNN_REFS)),
         ("4 _nn_kernel_bt", f"phase-1 ADD-S rows, B={cs.TRAIN_SYM_ROWS}, "

@@ -96,3 +96,22 @@ def test_phase_conv_kernel_matches_plain():
                                                    np.random.default_rng(4))
     assert np.isfinite(worst) and worst_rel <= 1e-4
     assert phase_conv.phase_conv_kernel.launches > before
+
+
+@pytest.mark.cuda
+def test_knn_ties_lowest_index_first_on_card():
+    """``knn(k=3)`` on CUDA tensors against 150 refs duplicated: the exact
+    ties come lowest index first, as the JAX ``knn`` orders them."""
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((2, 200, 3))
+                         .astype(np.float32)).to(dev)
+    half = rng.standard_normal((2, 150, 3)).astype(np.float32)
+    r = torch.from_numpy(np.concatenate([half, half], axis=1)).to(dev)
+    d, i = knn.knn(q, r, k=3)
+    torch.cuda.synchronize()
+    assert d.shape == i.shape == (2, 200, 3) and i.dtype == torch.int64
+    tied = d[..., 0] == d[..., 1]
+    assert float(tied.float().mean()) > 0.9
+    assert bool((i[..., 0][tied] < i[..., 1][tied]).all())
+    assert bool((i[..., 0] < 150).all())

@@ -184,6 +184,27 @@ def test_knn_matches_jax(rng, k):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("lead", [(2,), ()], ids=["batched", "rank2"])
+def test_knn_ties_lowest_index_first(rng, lead):
+    """k=3 against 150 refs duplicated: the first two distances tie exactly
+    in every row, and the lower index must come first, as the JAX ``knn``
+    (``lax.top_k``) orders them."""
+    q = rng.standard_normal(lead + (200, 3)).astype(np.float32)
+    half = rng.standard_normal(lead + (150, 3)).astype(np.float32)
+    r = np.concatenate([half, half], axis=-2)
+    d, i = knn.knn(torch.from_numpy(q), torch.from_numpy(r), k=3)
+    want_d, want_i = j_knn(jnp.asarray(q), jnp.asarray(r), k=3,
+                           backend="xla")
+    i, d = to_np(i), to_np(d)
+    assert i.dtype == np.int64 and i.shape == lead + (200, 3)
+    np.testing.assert_array_equal(i, np.asarray(want_i))
+    np.testing.assert_allclose(d, np.asarray(want_d), rtol=1e-5, atol=1e-5)
+    tied = d[..., 0] == d[..., 1]
+    assert tied.mean() > 0.9
+    assert (i[..., 0][tied] < i[..., 1][tied]).all()
+    assert (i[..., 0] < 150).all()
+
+
 @pytest.mark.parametrize("active", [None, [True, False]],
                          ids=["all-rows", "gated"])
 def test_min_sqdist_value_and_gradient_match_jax(rng, active):

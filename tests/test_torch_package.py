@@ -155,3 +155,25 @@ def test_mesh_and_benchmark_need_cuda_or_cpu():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert not torch.distributed.is_initialized()
+
+
+def test_build_digest_covers_headers(tmp_path, monkeypatch):
+    """A kernel's library path changes when its source, or any shared
+    ``csrc/*.cuh`` header it may include, changes; an unrelated file does
+    not move it. So an edited header is never served from a stale build."""
+    from densefusion_tpu_torch.ops import build
+
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "scan.cuh"\n')
+    (tmp_path / "scan.cuh").write_text("// v1\n")
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert build.library_path("k") == first
+    (tmp_path / "scan.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    assert second != first and second.parent == build.BUILD
+    (tmp_path / "extra.cuh").write_text("// new header\n")
+    assert build.library_path("k") not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "scan.cuh"\n// edited\n')
+    assert build.library_path("k") not in (first, second)
