@@ -18,7 +18,11 @@ fails. Phases, in order:
    between targets at swapped x and y, across the split scan's warps and
    its tiles, where a wrong winner moves the coefficients), batches with
    every row and with no row symmetric (also at the phase-1 shape), and
-   hypotheses at the pose, and the autograd Function's backward;
+   hypotheses at the pose; the paired kernel alone at the edges of its
+   split (fewer model points than the threads that share a hypothesis, N
+   past the hypothesis tile, one thread per hypothesis, every row gated at
+   the phase-2 main shape), twice on the phase-1 inputs (bit-identical),
+   and split at the refiner shape; and the autograd Function's backward;
    3c. the 1-NN kernels (rank 2 and batched) at the ``bench_knn`` shape,
    the phase-1 ADD-S shape, ragged shapes, exact ties, sentinel-padded
    refs, the refiner's shape (a grid of a few blocks) and ties that
@@ -63,8 +67,9 @@ fails. Phases, in order:
    .min(-1)``'s; for kernel 6 at its three shapes ``F.conv2d``'s, timed in
    turns with it, and both its bounds, 3xTF32 and FFMA); the ADD-S min
    kernel at the refiner shape in five windows, with the active rows first
-   and spread; for the redesigned scans (kernels 2, 3, 4) time over bound
-   and launches x (time - bound);
+   and spread; for the redesigned kernels (1, 2, 3, 4) time over bound
+   and launches x (time - bound), for the paired kernel (1) at phase 1, the
+   phase-2 main loss and the refiner, with the split each takes;
 7. a JSON line listing every ported kernel (``kernels``), with its launch
    count on the path that ported it (``launches``) and on each path
    (``launches_by_path``);
@@ -354,10 +359,44 @@ def check_add_dist(add_dist, rng) -> dict:
     """Phase 3: the paired (ADD) and min (ADD-S) kernels against their plain
     versions, each gated on its rows: dis within rtol 1e-5, the 12
     coefficients within atol 2e-5 (the kernels pin the rounding of q, d^2
-    and the scores, so only the order of the sums differs), gated rows
-    exactly 0; then the autograd Function's backward on the card equal to
-    ``g * coef`` of the plain versions (atol 2e-5)."""
+    and the scores, so only the order of the sums and, in the paired
+    kernel, a rsqrtf-based distance differ), gated rows exactly 0; then
+    paired-only cases at the edges of its split (fewer model points than
+    the threads that share a hypothesis, N past the hypothesis tile, every
+    row gated at the phase-2 main shape, one thread per hypothesis), two
+    launches on the phase-1 inputs bit-identical, the refiner shape split;
+    then the autograd Function's backward on the card equal to ``g * coef``
+    of the plain versions (atol 2e-5)."""
     from densefusion_tpu_torch.ops import knn
+
+    def compare(key, kernel, plain, args, act, name, at_pose=False,
+                note=""):
+        a = torch.from_numpy(act.astype(np.int32)).cuda()
+        kd, kc = kernel(*args, a)
+        pd, pc = plain(*args, a)
+        torch.cuda.synchronize()
+        off = ~torch.from_numpy(act).cuda()
+        if kd[off].any() or kc[off].any():
+            raise AssertionError(f"{key}: gated rows not 0 on {name}")
+        if not torch.allclose(kd, pd, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"{key}: dis differs on {name}: "
+                                 f"{float((kd - pd).abs().max())}")
+        cerr = float((kc - pc).abs().max())
+        if cerr > 2e-5:
+            raise AssertionError(f"{key}: coefficients differ on {name}: "
+                                 f"{cerr}")
+        if at_pose and kc.any():
+            raise AssertionError(f"{key}: coefficients not 0 at the pose")
+        err = max(float((kd - pd).abs().max()), cerr)
+        worst[key] = max(worst[key], err)
+        log(f"  {key} kernel == plain on {name}{note}: max abs err "
+            f"{err:.3g} (dis {float((kd - pd).abs().max()):.3g}, coef "
+            f"{cerr:.3g})")
+        return a
+
+    def paired_note(shape):
+        threads, hyps = add_dist.paired_split(*shape[:2])
+        return f", split {threads} threads x {hyps} hypotheses"
 
     phase1_sym = np.arange(TRAIN_BATCH) < TRAIN_SYM_ROWS
     cases = [
@@ -393,33 +432,48 @@ def check_add_dist(add_dist, rng) -> dict:
         kw = dict(kw)
         args = (swapped_ties_problem(rng, *shape) if kw.pop("swapped", False)
                 else pose_problem(rng, *shape, **kw))
-        for key, kernel, plain, act in (
-                ("add_dist_paired", add_dist.paired_kernel,
-                 add_dist.paired_plain, ~sym),
-                ("add_dist_min", add_dist.min_kernel, add_dist.min_plain,
-                 sym)):
-            a = torch.from_numpy(act.astype(np.int32)).cuda()
-            kd, kc = kernel(*args, a)
-            pd, pc = plain(*args, a)
+        a = compare("add_dist_paired", add_dist.paired_kernel,
+                    add_dist.paired_plain, args, ~sym, name,
+                    kw.get("at_pose", False), paired_note(shape))
+        if name.startswith("phase-1"):
+            # no float atomics: a second launch repeats the first bit for bit
+            first = add_dist.paired_kernel(*args, a)
+            again = add_dist.paired_kernel(*args, a)
             torch.cuda.synchronize()
-            off = ~torch.from_numpy(act).cuda()
-            if kd[off].any() or kc[off].any():
-                raise AssertionError(f"{key}: gated rows not 0 on {name}")
-            if not torch.allclose(kd, pd, rtol=1e-5, atol=0.0):
-                raise AssertionError(f"{key}: dis differs on {name}: "
-                                     f"{float((kd - pd).abs().max())}")
-            cerr = float((kc - pc).abs().max())
-            if cerr > 2e-5:
-                raise AssertionError(f"{key}: coefficients differ on {name}: "
-                                     f"{cerr}")
-            if kw.get("at_pose") and kc.any():
-                raise AssertionError(f"{key}: coefficients not 0 at the pose")
-            err = max(float((kd - pd).abs().max()), cerr)
-            worst[key] = max(worst[key], err)
-            log(f"  {key} kernel == plain on {name}"
-                + (f", split {split}" if key == "add_dist_min" else "")
-                + f": max abs err {err:.3g} (dis "
-                f"{float((kd - pd).abs().max()):.3g}, coef {cerr:.3g})")
+            if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                raise AssertionError("add_dist_paired: two launches on the "
+                                     "phase-1 inputs differ")
+            log("  add_dist_paired: two launches on the phase-1 inputs are "
+                "bit-identical")
+        compare("add_dist_min", add_dist.min_kernel, add_dist.min_plain, args,
+                sym, name, kw.get("at_pose", False), f", split {split}")
+
+    # the paired kernel alone, at the edges of its split
+    threads, _ = add_dist.paired_split(TRAIN_BATCH, 1)
+    if threads == 1:
+        raise AssertionError("add_dist_paired: the refiner shape ran unsplit")
+    mixed = np.array([True, False, True, True])
+    for name, shape, act in (
+            ("fewer points than threads per hypothesis (4, N=65, M=1)",
+             (4, 65, 1), mixed),
+            ("fewer points than threads per hypothesis (4, N=65, M=7)",
+             (4, 65, 7), mixed),
+            ("N past the hypothesis tile (32, N=1001, M=500)",
+             (TRAIN_BATCH, NUM_POINTS + 1, NUM_MESH), ~phase1_sym),
+            ("one thread per hypothesis (300, N=5, M=50)", (300, 5, 50),
+             np.arange(300) % 3 != 0),
+            ("every row gated at the phase-2 main shape (32, N=1000, "
+             "M=2600)", (TRAIN_BATCH, NUM_POINTS, REFINE_MESH),
+             np.zeros(TRAIN_BATCH, bool))):
+        threads, _ = add_dist.paired_split(*shape[:2])
+        if "fewer points" in name and threads <= shape[2]:
+            raise AssertionError(f"add_dist_paired: {name} ran with "
+                                 f"{threads} threads per hypothesis")
+        if "one thread" in name and threads != 1:
+            raise AssertionError(f"add_dist_paired: {name} ran split")
+        compare("add_dist_paired", add_dist.paired_kernel,
+                add_dist.paired_plain, pose_problem(rng, *shape), act, name,
+                note=paired_note(shape))
 
     R, t, model, target = pose_problem(rng, 6, 50, 300)
     sym = torch.tensor([1, 0, 1, 0, 0, 1], dtype=torch.bool, device="cuda")
@@ -1301,17 +1355,21 @@ def run() -> None:
     ones = torch.ones(TRAIN_BATCH, dtype=torch.int32, device="cuda")
     main2 = pose_problem(rng_t, TRAIN_BATCH, NUM_POINTS, REFINE_MESH)
     ref2 = pose_problem(rng_t, TRAIN_BATCH, 1, REFINE_MESH)
-    for label, kernel, args, a, rows, nearest in (
-            ("add_dist_paired, phase-2 main loss (32, N=1000, M=2600)",
+    for key, label, kernel, args, a, rows, nearest in (
+            ("phase2_main",
+             "add_dist_paired, phase-2 main loss (32, N=1000, M=2600)",
              add_dist.paired_kernel, main2, ones, TRAIN_BATCH, False),
-            ("add_dist_paired, refiner (32, N=1, M=2600)",
+            ("refiner", "add_dist_paired, refiner (32, N=1, M=2600)",
              add_dist.paired_kernel, ref2, acts["add_dist_paired"],
              TRAIN_BATCH - TRAIN_SYM_ROWS, False)):
         k_ms = graph_ms(lambda: kernel(*args, a))
         bnd, by = add_dist_bound_ms(TRAIN_BATCH, args[0].shape[1],
                                     REFINE_MESH, rows, nearest)
+        split = add_dist.paired_split(TRAIN_BATCH, args[0].shape[1])
+        dist_times[f"add_dist_paired_{key}"] = (k_ms, bnd, by, split)
         log(f"[6] {label}, {rows} rows active: kernel {k_ms:.4f} ms (graph "
-            f"replays), bound {bnd:.5f} ms ({by}); card {card}")
+            f"replays), bound {bnd:.5f} ms ({by}), {k_ms / bnd:.2f}x it, "
+            f"split {split[0]} threads x {split[1]} hypotheses; card {card}")
     # the min kernel at the refiner shape, in five graph windows (its first
     # design read ~78 or ~106 us from call to call), with the active rows
     # first (as training has them) and spread over the batch (rows 0, 4,
@@ -1378,6 +1436,28 @@ def run() -> None:
         f"{b_ref:.5f} = {k_ref / b_ref:.2f}x; launches phase 1 {n_p1}, "
         f"refiner {n_ref}, search {n_search}; launches x (time - bound) "
         f"{excess['add_dist_min']:.4f} ms; card {card}")
+    # the redesigned paired kernel (kernel 1): phase 1 (and the search
+    # path's hypothesis-sharded distance, also at the phase-1 shape), the
+    # phase-2 main loss and the refiner iterations
+    k_p1, _, _, b_p1, _ = dist_times["add_dist_paired"]
+    k_main, b_main = dist_times["add_dist_paired_phase2_main"][:2]
+    k_pref, b_pref = dist_times["add_dist_paired_refiner"][:2]
+    n_p1 = train_by_phase[1]["add_dist_paired"]
+    n_p2 = train_by_phase[2]["add_dist_paired"]
+    n_main = n_p2 // (1 + REFINE_ITERS)
+    n_search = path_launches["search"]["add_dist_paired"]
+    excess["add_dist_paired"] = ((n_p1 + n_search) * (k_p1 - b_p1)
+                                 + n_main * (k_main - b_main)
+                                 + (n_p2 - n_main) * (k_pref - b_pref))
+    split1 = add_dist.paired_split(TRAIN_BATCH, NUM_POINTS)
+    log(f"[6] redesigned add_dist_paired: phase 1 {k_p1:.4f} ms / bound "
+        f"{b_p1:.5f} = {k_p1 / b_p1:.2f}x, split {split1[0]} threads x "
+        f"{split1[1]} hypotheses; phase-2 main loss {k_main:.4f} ms / "
+        f"{b_main:.5f} = {k_main / b_main:.2f}x; refiner {k_pref:.4f} ms / "
+        f"{b_pref:.5f} = {k_pref / b_pref:.2f}x; launches phase 1 {n_p1}, "
+        f"phase-2 main loss {n_main}, refiner {n_p2 - n_main}, search "
+        f"{n_search}; launches x (time - bound) "
+        f"{excess['add_dist_paired']:.4f} ms; card {card}")
     for name in ("nn", "nn_batched"):
         k_ms, _, _, bnd, _, _ = nn_times[name]
         n = path_launches["search"][name]
@@ -1467,6 +1547,13 @@ def run() -> None:
                             "hypothesis mean ADD(-S) distance",
             "wrapper_ms": w_ms, "parity": "ok", "build_s": build_s,
         })
+        if name == "add_dist_paired":
+            kernels[-1].update({"launches_x_excess_ms": excess[name]})
+            for key in ("phase2_main", "refiner"):
+                s_ms, s_bnd, _, split = dist_times[f"add_dist_paired_{key}"]
+                kernels[-1].update({f"{key}_ms": s_ms,
+                                    f"{key}_bound_ms": s_bnd,
+                                    f"{key}_split": list(split)})
         if name == "add_dist_min":
             ref_ms, ref_bnd, _, ref_read = dist_times["add_dist_min_refiner"]
             kernels[-1].update({

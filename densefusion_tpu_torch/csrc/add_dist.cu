@@ -17,18 +17,41 @@
 //
 // and out[b, n] = 0 for every n where act[b] == 0. R is (B, N, 3, 3), t
 // (B, N, 3), model and target (B, M, 3), act (B,) int32, out (B, N, 13),
-// all float32 and allocated by the caller, as is the scratch `partial`.
+// all float32 and allocated by the caller, as is the min kernel's scratch
+// `partial`.
 //
-// Design. Both kernels cut the model points of a sample into chunks and
-// write each chunk's 13 sums to partial (S, B, N, 13), S = ceil(M / chunk);
-// a second, deterministic pass adds the S partial sums of every row in
-// order, scales by 1/M and zeroes gated rows (no float atomics, so a run
-// repeats bit for bit).
+// Design. Neither kernel uses float atomics: every sum is taken in a fixed
+// order, so a run repeats bit for bit.
 //
-// * Paired: one thread per hypothesis (blocks of PAIRED_THREADS hypotheses
-//   of one sample, chunks of M_CHUNK = 256 points), the chunk's model and
-//   target points staged once in shared memory, the 13 sums in registers.
-// * Min: the nearest-neighbour scan of csrc/nn_scan.cuh. A work item is a
+// * Paired: one launch. A block of PAIRED_THREADS threads owns a tile of
+//   hypotheses of one row over all M model points: its threads form teams
+//   of P, each team holds HT hypotheses (HT = 2 where N allows, so one
+//   staged point serves two independent chains), and a team's P threads
+//   split the model points between them (thread j takes m = j, j + P, ...).
+//   The block stages PAIRED_TILE model and target points at a time in
+//   shared memory as float4, one broadcast load per point. A team's 13 * HT
+//   sums merge by a warp butterfly over its lanes and, where a team spans
+//   warps, in shared memory in warp order; then they are scaled by 1/M and
+//   written to out. Blocks of gated rows write their zeros and return.
+//   `nn_scan::paired_split` picks P from (B, N): one thread per hypothesis
+//   where the rows alone fill the card, a whole block per hypothesis at the
+//   refiner's N = 1. P is a template parameter, so a thread's point stride
+//   is a constant and its loop, unrolled PAIRED_UNROLL times, reads shared
+//   memory at immediate offsets: ~47.6 lane instructions per (hypothesis,
+//   point) pair at phase 1 (cuobjdump -sass, examples/gpu_scan_turns.py),
+//   of which the pinned q takes 21 and the 13 sums 15. ptxas takes 80
+//   registers, so three blocks fit on an SM. Slower on the H100 in scratch
+//   builds: a runtime stride; the registers held to 64 for four blocks per
+//   SM (it spills); one hypothesis per thread; blocks of 128 threads; IEEE
+//   division by M in place of the scaling. The first design (one thread per
+//   hypothesis, M cut into 256-point chunks whose partial sums a second
+//   kernel added) ran at 5.0x its bound at phase 1 and ~59x at the refiner,
+//   where 24 threads each walked 256 points in a dependent chain.
+// * Min: the M model points of a sample are cut into chunks, and each
+//   chunk's 13 sums go to partial (S, B, N, 13), S = ceil(M / chunk); a
+//   second pass (`finalize`) adds the S partial sums of every row in order,
+//   scales by 1/M and zeroes gated rows. The chunk's sums come from the
+//   nearest-neighbour scan of csrc/nn_scan.cuh. A work item is a
 //   (row b, hypothesis n, chunk of MIN_CHUNK = 128 model points); one warp
 //   builds the item's 128 queries q = R_n model_m + t_n, 4 per lane, in
 //   registers, and scans the sample's targets, staged in shared memory as
@@ -52,9 +75,14 @@
 // __fadd_rn / __fsub_rn, which nvcc never contracts into FMAs, in the order
 // of the plain PyTorch versions (ops/add_dist.py `_transform`, `_dist_coef`,
 // ops/knn.py `_scores`). Kernel and plain version therefore pick the same
-// nearest target, ties included, and make the same floor decisions; they
-// differ only in the order of the sums. Why no FMAs and no tensor cores:
-// csrc/nn_scan.cuh.
+// nearest target, ties included, and make the same floor decisions (d2 >
+// EPS), so at the pose the coefficients are exactly 0; they differ only in
+// the order of the sums and, in the paired kernel, in d = d2f * rsqrt(d2f)
+// from the approximate reciprocal square root (a few ulp from the IEEE
+// sqrtf, held at rtol 1e-5). FMAs are used in the 13 accumulations only.
+// Why no FMAs in q and no tensor cores: csrc/nn_scan.cuh. An FMA-chained q
+// would save 9 of the paired kernel's ~47.6 lane instructions per
+// (hypothesis, point) pair.
 //
 // Bound on the H100: arithmetic, fp32 on the CUDA cores (K = 3 is no shape
 // for tensor cores). Paired: ~60 operations per (hypothesis, m) pair of an
@@ -76,8 +104,9 @@ namespace {
 
 constexpr float EPS = 1e-12f;
 constexpr int NV = 13;               // values per hypothesis row
-constexpr int M_CHUNK = 256;         // model points per paired block
-constexpr int PAIRED_THREADS = 128;  // hypotheses per paired block
+constexpr int PAIRED_THREADS = 256;  // threads per paired block
+constexpr int PAIRED_TILE = 1024;    // model points staged at a time (32 KB)
+constexpr int PAIRED_UNROLL = 4;     // points per turn of a thread's loop
 constexpr int MIN_CHUNK = nn_scan::SLOT;  // model points per min work item
 // Min blocks per SM that the compiler must fit (__launch_bounds__). Told
 // three, ptxas may give the kernel up to 85 registers and takes 78-79;
@@ -98,13 +127,34 @@ __device__ __forceinline__ float affine(const float* rc, float tc, float x,
                    tc);
 }
 
-// Adds one model point's terms to the 13 sums.
+// 1 / sqrt(x) for a normal x (here x >= EPS): the approximate reciprocal
+// square root with denormals flushed, which spares the scaling that
+// rsqrtf wraps around it for denormal inputs.
+__device__ __forceinline__ float rsqrt_normal(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Adds one model point's terms to the 13 sums. kRsqrtDist takes the
+// distance as d2f * rsqrt(d2f), from the reciprocal square root that u
+// needs (the paired kernel's inner loop); otherwise it is the IEEE sqrtf
+// (the min kernel, which adds one term per query after its scan).
+template <bool kRsqrtDist>
 __device__ __forceinline__ void accumulate(float* acc, float dx, float dy,
                                            float dz, float x, float y,
                                            float z) {
   const float d2 = sq3(dx, dy, dz);
-  acc[0] += sqrtf(fmaxf(d2, EPS));
-  const float inv = d2 > EPS ? rsqrtf(d2) : 0.f;
+  float inv;
+  if constexpr (kRsqrtDist) {
+    const float d2f = fmaxf(d2, EPS);
+    const float rs = rsqrt_normal(d2f);
+    acc[0] += d2f * rs;
+    inv = d2 > EPS ? rs : 0.f;
+  } else {
+    acc[0] += sqrtf(fmaxf(d2, EPS));
+    inv = d2 > EPS ? rsqrtf(d2) : 0.f;
+  }
   const float u[3] = {dx * inv, dy * inv, dz * inv};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -115,49 +165,115 @@ __device__ __forceinline__ void accumulate(float* acc, float dx, float dy,
   }
 }
 
+// The paired kernel: a block owns hypotheses [n0, n0 + teams * HT) of row
+// b = blockIdx.y, n0 = blockIdx.x * teams * HT; team k of P threads holds
+// hypotheses n0 + k * HT + h, h < HT. Every thread reaches the merge
+// (threads of hypotheses past N compute on zeros and write nothing).
+template <int P, int HT>
 __global__ void __launch_bounds__(PAIRED_THREADS)
-paired_partial(const float* __restrict__ R, const float* __restrict__ t,
-               const float* __restrict__ model,
-               const float* __restrict__ target,
-               const int* __restrict__ act, float* __restrict__ partial,
-               int N, int M) {
-  __shared__ float pts[2 * 3 * M_CHUNK];   // model xyz, then target xyz
+paired_dist(const float* __restrict__ R, const float* __restrict__ t,
+            const float* __restrict__ model,
+            const float* __restrict__ target, const int* __restrict__ act,
+            float* __restrict__ out, int N, int M) {
+  using nn_scan::WARP;
+  constexpr int teams = PAIRED_THREADS / P;
+  __shared__ float4 mdl[PAIRED_TILE];
+  __shared__ float4 tgt[PAIRED_TILE];
+  __shared__ float red[PAIRED_THREADS / WARP][HT * NV];
   const int b = blockIdx.y;
-  const int s = blockIdx.z;
-  if (act[b] == 0) return;                 // uniform across the block
-  const int m0 = s * M_CHUNK;
-  const int cnt = min(M_CHUNK, M - m0);
-  const float* mb = model + ((long long)b * M + m0) * 3;
-  const float* tb = target + ((long long)b * M + m0) * 3;
-  for (int i = threadIdx.x; i < cnt * 3; i += PAIRED_THREADS) {
-    pts[i] = mb[i];
-    pts[3 * M_CHUNK + i] = tb[i];
+  const int n0 = blockIdx.x * teams * HT;
+  const int nb = min(teams * HT, N - n0);      // hypotheses of this block
+  float* ob = out + ((long long)b * N + n0) * NV;
+  if (act[b] == 0) {                           // uniform across the block
+    for (int i = threadIdx.x; i < nb * NV; i += PAIRED_THREADS) ob[i] = 0.f;
+    return;
   }
-  __syncthreads();
-  const int n = blockIdx.x * PAIRED_THREADS + threadIdx.x;
-  if (n >= N) return;
+  const int team = threadIdx.x / P, j = threadIdx.x % P;
 
-  const long long row = (long long)b * N + n;
-  float r[9], tt[3];
+  float r[HT][9], tt[HT][3], acc[HT][NV];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) r[k] = R[row * 9 + k];
+  for (int h = 0; h < HT; ++h) {
+    const int n = team * HT + h;
+    const long long row = (long long)b * N + n0 + n;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) tt[c] = t[row * 3 + c];
-
-  float acc[NV];
+    for (int k = 0; k < 9; ++k) r[h][k] = n < nb ? R[row * 9 + k] : 0.f;
 #pragma unroll
-  for (int k = 0; k < NV; ++k) acc[k] = 0.f;
-  for (int i = 0; i < cnt; ++i) {
-    const float x = pts[3 * i], y = pts[3 * i + 1], z = pts[3 * i + 2];
-    const float* g = pts + 3 * M_CHUNK + 3 * i;
-    const float dx = __fsub_rn(affine(r + 0, tt[0], x, y, z), g[0]);
-    const float dy = __fsub_rn(affine(r + 3, tt[1], x, y, z), g[1]);
-    const float dz = __fsub_rn(affine(r + 6, tt[2], x, y, z), g[2]);
-    accumulate(acc, dx, dy, dz, x, y, z);
+    for (int c = 0; c < 3; ++c) tt[h][c] = n < nb ? t[row * 3 + c] : 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) acc[h][k] = 0.f;
   }
-  float* out = partial + ((long long)s * gridDim.y * N + row) * NV;
+
+  const float* mb = model + (long long)b * M * 3;
+  const float* tb = target + (long long)b * M * 3;
+  for (int m0 = 0; m0 < M; m0 += PAIRED_TILE) {
+    const int cnt = min(PAIRED_TILE, M - m0);
+    if (m0 > 0) __syncthreads();               // the last tile is read
+    for (int i = threadIdx.x; i < cnt; i += PAIRED_THREADS) {
+      const float* p = mb + (long long)(m0 + i) * 3;
+      const float* g = tb + (long long)(m0 + i) * 3;
+      mdl[i] = make_float4(p[0], p[1], p[2], 0.f);
+      tgt[i] = make_float4(g[0], g[1], g[2], 0.f);
+    }
+    __syncthreads();
+#pragma unroll PAIRED_UNROLL
+    for (int i = j; i < cnt; i += P) {
+      const float4 x = mdl[i], g = tgt[i];
 #pragma unroll
-  for (int k = 0; k < NV; ++k) out[k] = acc[k];
+      for (int h = 0; h < HT; ++h) {
+        const float dx = __fsub_rn(affine(r[h] + 0, tt[h][0], x.x, x.y, x.z),
+                                   g.x);
+        const float dy = __fsub_rn(affine(r[h] + 3, tt[h][1], x.x, x.y, x.z),
+                                   g.y);
+        const float dz = __fsub_rn(affine(r[h] + 6, tt[h][2], x.x, x.y, x.z),
+                                   g.z);
+        accumulate<true>(acc[h], dx, dy, dz, x.x, x.y, x.z);
+      }
+    }
+  }
+
+  // Merge the team's sums: a butterfly over its lanes in each warp (every
+  // lane ends with the same bits), then, where the team spans warps, the
+  // warps' sums in warp order.
+#pragma unroll
+  for (int off = 1; off < (P < WARP ? P : WARP); off <<= 1) {
+#pragma unroll
+    for (int h = 0; h < HT; ++h) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        acc[h][k] += __shfl_xor_sync(0xffffffffu, acc[h][k], off);
+    }
+  }
+  const float inv_m = 1.f / (float)M;
+  if constexpr (P <= WARP) {
+    if (j == 0) {
+#pragma unroll
+      for (int h = 0; h < HT; ++h) {
+        const int n = team * HT + h;
+        if (n < nb) {
+#pragma unroll
+          for (int k = 0; k < NV; ++k) ob[n * NV + k] = acc[h][k] * inv_m;
+        }
+      }
+    }
+  } else {
+    const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+    if (lane == 0) {
+#pragma unroll
+      for (int h = 0; h < HT; ++h) {
+#pragma unroll
+        for (int k = 0; k < NV; ++k) red[warp][h * NV + k] = acc[h][k];
+      }
+    }
+    __syncthreads();
+    constexpr int per_team = P / WARP;         // warps per team
+    if (warp % per_team == 0 && lane < HT * NV) {
+      float v = red[warp][lane];
+#pragma unroll
+      for (int w = 1; w < per_team; ++w) v += red[warp + w][lane];
+      const int n = team * HT + lane / NV;
+      if (n < nb) ob[n * NV + lane % NV] = v * inv_m;
+    }
+  }
 }
 
 struct Active {
@@ -251,9 +367,10 @@ min_partial(const float* __restrict__ R, const float* __restrict__ t,
       for (int j = 0; j < QT; ++j) {
         if (m0 + j * WARP < M) {
           const float* w = tb + (long long)l.idx[j] * 3;
-          accumulate(acc, __fsub_rn(l.q[j][0], w[0]),
-                     __fsub_rn(l.q[j][1], w[1]), __fsub_rn(l.q[j][2], w[2]),
-                     mp[j][0], mp[j][1], mp[j][2]);
+          accumulate<false>(acc, __fsub_rn(l.q[j][0], w[0]),
+                            __fsub_rn(l.q[j][1], w[1]),
+                            __fsub_rn(l.q[j][2], w[2]), mp[j][0], mp[j][1],
+                            mp[j][2]);
         }
       }
       float* out = partial + ((long long)c * B * N + row) * NV;
@@ -287,20 +404,6 @@ finalize(const float* __restrict__ partial, const int* __restrict__ act,
   out[i] = v;
 }
 
-int finalize_launch(const float* partial, const int* act, float* out, int B,
-                    int N, int M, int S, cudaStream_t stream) {
-  const long long total = (long long)B * N * NV;
-  const unsigned blocks = (unsigned)((total + FIN_THREADS - 1) / FIN_THREADS);
-  finalize<<<blocks, FIN_THREADS, 0, stream>>>(partial, act, out, B, N, S,
-                                                1.0f / (float)M);
-  return static_cast<int>(cudaGetLastError());
-}
-
-bool bad_shape(int B, int N, int M, int S, int chunk) {
-  return B < 1 || B > 65535 || N < 1 || N > 65535 || M < 1 ||
-         S != (M + chunk - 1) / chunk;
-}
-
 // The min kernel's persistent grid for split S: as many blocks as fit on
 // the card at once (the occupancy read once per process), or fewer where
 // the groups of all rows are fewer.
@@ -323,34 +426,52 @@ int min_launch_split(const float* R, const float* t, const float* model,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Both launchers run on `stream` (PyTorch's current stream), return
-// cudaGetLastError() (cudaErrorInvalidValue for shapes they do not take;
-// the Python wrapper checks them first), and need partial to hold
-// S * B * N * 13 floats: S = ceil(M / 256) for the paired kernel,
-// S = ceil(M / 128) for the min kernel.
-extern "C" int add_dist_paired_launch(const float* R, const float* t,
-                                      const float* model, const float* target,
-                                      const int* act, float* partial,
-                                      float* out, int B, int N, int M, int S,
-                                      void* stream) {
-  if (bad_shape(B, N, M, S, M_CHUNK))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + PAIRED_THREADS - 1) / PAIRED_THREADS, B, S);
-  paired_partial<<<grid, PAIRED_THREADS, 0, st>>>(R, t, model, target, act,
-                                                  partial, N, M);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return finalize_launch(partial, act, out, B, N, M, S, st);
+bool bad_shape(int B, int N, int M) {
+  return B < 1 || B > 65535 || N < 1 || N > 65535 || M < 1;
 }
 
+}  // namespace
+
+// The launchers run on `stream` (PyTorch's current stream) and return
+// cudaGetLastError() (cudaErrorInvalidValue for shapes they do not take;
+// the Python wrapper checks them first).
+
+// The paired kernel: one launch that writes out, with no scratch.
+extern "C" int add_dist_paired_launch(const float* R, const float* t,
+                                      const float* model, const float* target,
+                                      const int* act, float* out, int B,
+                                      int N, int M, void* stream) {
+  if (bad_shape(B, N, M)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int ht = 1;
+  const int split = nn_scan::paired_split(B, N, PAIRED_THREADS, &ht);
+  return nn_scan::dispatch<PAIRED_THREADS>(split, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    const int per_block = PAIRED_THREADS / P * ht;
+    const dim3 grid((N + per_block - 1) / per_block, B);
+    if (ht == 2)
+      paired_dist<P, 2><<<grid, PAIRED_THREADS, 0, st>>>(R, t, model, target,
+                                                         act, out, N, M);
+    else
+      paired_dist<P, 1><<<grid, PAIRED_THREADS, 0, st>>>(R, t, model, target,
+                                                         act, out, N, M);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// The paired kernel's split for B rows of N hypotheses: returns the threads
+// that share one hypothesis and sets *hyps_per_thread.
+extern "C" int add_dist_paired_split(int B, int N, int* hyps_per_thread) {
+  return nn_scan::paired_split(B, N, PAIRED_THREADS, hyps_per_thread);
+}
+
+// The min kernel: its partial sums, then `finalize`; partial must hold
+// S * B * N * 13 floats, S = ceil(M / 128).
 extern "C" int add_dist_min_launch(const float* R, const float* t,
                                    const float* model, const float* target,
                                    const int* act, float* partial, float* out,
                                    int B, int N, int M, int S, void* stream) {
-  if (bad_shape(B, N, M, S, MIN_CHUNK))
+  if (bad_shape(B, N, M) || S != (M + MIN_CHUNK - 1) / MIN_CHUNK)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = nn_scan::dispatch(
@@ -359,5 +480,9 @@ extern "C" int add_dist_min_launch(const float* R, const float* t,
             R, t, model, target, act, partial, B, N, M, S, st);
       });
   if (err != 0) return err;
-  return finalize_launch(partial, act, out, B, N, M, S, st);
+  const long long total = (long long)B * N * NV;
+  const unsigned blocks = (unsigned)((total + FIN_THREADS - 1) / FIN_THREADS);
+  finalize<<<blocks, FIN_THREADS, 0, st>>>(partial, act, out, B, N, S,
+                                           1.0f / (float)M);
+  return static_cast<int>(cudaGetLastError());
 }

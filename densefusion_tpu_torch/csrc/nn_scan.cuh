@@ -103,14 +103,33 @@ inline int min_split(int B, int N, int M) {
   return split(B, (long long)N * ((M + SLOT - 1) / SLOT), M, 4);
 }
 
-// Returns launch(std::integral_constant<int, S>{}) for the split S = s.
-template <class F>
+// The paired (ADD) distance kernel (add_dist.cu), which needs no scan but
+// fills the card by the same measure: B rows of N hypotheses on blocks of
+// `threads` threads. Returns P, the threads that share one hypothesis and
+// split its model points: the least power of two at which the grid has at
+// least two blocks per SM, at most `threads` (a whole block on one
+// hypothesis, as at the refiner's N = 1). Sets *ht to the hypotheses a
+// thread carries: 2 where N fills the block's teams twice over, else 1.
+inline int paired_split(int B, int N, int threads, int* ht) {
+  const long long want = 2LL * sm_count();
+  for (int p = 1;; p *= 2) {
+    const int teams = threads / p;
+    *ht = N >= 2 * teams ? 2 : 1;
+    const long long per_block = (long long)teams * *ht;
+    if (p >= threads || B * ((N + per_block - 1) / per_block) >= want)
+      return p;
+  }
+}
+
+// Returns launch(std::integral_constant<int, S>{}) for the split S = s, a
+// power of two up to MAX (the scan's WARPS by default).
+template <int MAX = WARPS, int V = 1, class F>
 int dispatch(int s, F&& launch) {
-  switch (s) {
-    case 1: return launch(std::integral_constant<int, 1>{});
-    case 2: return launch(std::integral_constant<int, 2>{});
-    case 4: return launch(std::integral_constant<int, 4>{});
-    default: return launch(std::integral_constant<int, 8>{});
+  if constexpr (V >= MAX) {
+    return launch(std::integral_constant<int, V>{});
+  } else {
+    if (s <= V) return launch(std::integral_constant<int, V>{});
+    return dispatch<MAX, 2 * V>(s, launch);
   }
 }
 

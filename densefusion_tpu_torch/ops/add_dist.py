@@ -37,9 +37,8 @@ EPS = 1e-12  # squared-distance floor: 1 um distance, zero gradient below
 # Hypotheses per chunk of the plain versions are capped so one (B, chunk, M)
 # block holds at most this many elements.
 _CHUNK_ELEMS = 1 << 22
-# Model points per chunk of the kernels' partial sums (partial is (S, B, N,
-# 13), S = ceil(M / chunk)): M_CHUNK and MIN_CHUNK in csrc/add_dist.cu.
-PAIRED_CHUNK = 256
+# Model points per chunk of the min kernel's partial sums (partial is (S, B,
+# N, 13), S = ceil(M / chunk)): MIN_CHUNK in csrc/add_dist.cu.
 MIN_CHUNK = 128
 
 
@@ -104,11 +103,16 @@ def min_plain(R, t, model, target, act):
 
 
 class AddDistKernel(build.Kernel):
-    """ctypes wrapper of one kernel of ``csrc/add_dist.cu``."""
+    """ctypes wrapper of one kernel of ``csrc/add_dist.cu``. ``chunk`` is the
+    model points per partial sum of a kernel that needs the scratch
+    ``partial`` (the min kernel); None for one that writes ``out`` in one
+    launch (the paired kernel)."""
 
-    def __init__(self, name: str, symbol: str, chunk: int):
+    def __init__(self, name: str, symbol: str, chunk: int | None):
+        scratch = chunk is not None
         super().__init__(name, "add_dist", symbol,
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4)
+                         [ctypes.c_void_p] * (6 + scratch)
+                         + [ctypes.c_int] * (3 + scratch))
         self.chunk = chunk
 
     def __call__(self, R, t, model, target, act):
@@ -137,18 +141,34 @@ class AddDistKernel(build.Kernel):
         out = torch.empty((bsz, n, 13), dtype=torch.float32, device=dev)
         if n == 0:
             return out[..., 0], out[..., 1:]
-        splits = -(-m // self.chunk)
-        partial = torch.empty((splits, bsz, n, 13), dtype=torch.float32,
-                              device=dev)
-        self.launch(dev, R.data_ptr(), t.data_ptr(), model.data_ptr(),
-                    target.data_ptr(), act.data_ptr(), partial.data_ptr(),
-                    out.data_ptr(), bsz, n, m, splits)
+        ptrs = [x.data_ptr() for x in (R, t, model, target, act)]
+        if self.chunk is None:
+            self.launch(dev, *ptrs, out.data_ptr(), bsz, n, m)
+        else:
+            splits = -(-m // self.chunk)
+            partial = torch.empty((splits, bsz, n, 13), dtype=torch.float32,
+                                  device=dev)
+            self.launch(dev, *ptrs, partial.data_ptr(), out.data_ptr(), bsz,
+                        n, m, splits)
         return out[..., 0], out[..., 1:]
 
 
 paired_kernel = AddDistKernel("add_dist_paired", "add_dist_paired_launch",
-                              PAIRED_CHUNK)
+                              None)
 min_kernel = AddDistKernel("add_dist_min", "add_dist_min_launch", MIN_CHUNK)
+
+
+def paired_split(bsz: int, n: int) -> tuple[int, int]:
+    """(threads per hypothesis, hypotheses per thread) that the paired
+    kernel takes for B rows of n hypotheses (``nn_scan::paired_split``):
+    above one thread, that many threads split each hypothesis's model points
+    and merge their sums. Needs the card."""
+    fn = build.load("add_dist").add_dist_paired_split
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    hyps = ctypes.c_int(0)
+    threads = fn(bsz, n, ctypes.byref(hyps))
+    return threads, hyps.value
 
 
 def dist_and_coef(R, t, model, target, sym, use_adds: bool = True):

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time the search-scan kernels (kernel 2, the ADD-S min distance; kernels
-3 and 4, the 1-NN search) of this checkout against those of another
-checkout, in turns on one card, with the train steps that launch kernel 2,
-and probe the min kernel's time at the refiner shape.
+"""Time the distance and search kernels that PRs 6 and 8 redesigned (kernel
+1, the ADD paired distance; kernel 2, the ADD-S min distance; kernels 3 and
+4, the 1-NN search) of this checkout against those of another checkout, in
+turns on one card, with the train steps that launch kernels 1 and 2; probe
+the min kernel's time at the refiner shape; and count the paired kernel's
+lane instructions per (hypothesis, point) pair in its SASS.
 
     python3 examples/gpu_scan_turns.py OUT.json [--parent DIR]
 
@@ -10,33 +12,45 @@ and probe the min kernel's time at the refiner shape.
 checkout (for example one unpacked with ``git archive``). Its ``nn.cu`` and
 ``add_dist.cu`` are built by ``ops/build.py`` (the port's own flags) into a
 directory of their own and loaded with ctypes; both sets take the same C
-entry points. Readings go in turns (parent, change, change, parent; change,
-change without ``DIR``):
+entry points, except that a paired entry point of a set without
+``add_dist_paired_split`` (the earlier two-launch kernel) also takes a
+scratch ``partial``, which the set allocates. Readings go in turns (parent,
+change, change, parent; change, change without ``DIR``):
 
 * each kernel, a CUDA-graph window of many launches, at the driven shapes:
-  1-NN at Q=250,000, R=500 and batched at (8, 500,000, 500); the min kernel
-  at phase 1 (B=32, N=1000, M=500, 8 rows active), at the refiner shape
-  (B=32, N=1, M=2600, 8 rows active) and there with no active row (its
-  fixed cost);
+  1-NN at Q=250,000, R=500 and batched at (8, 500,000, 500); the paired
+  kernel at phase 1 (B=32, N=1000, M=500, 24 rows active), at the phase-2
+  main loss (B=32, N=1000, M=2600, every row active) and at the refiner
+  shape (B=32, N=1, M=2600, 24 rows active); the min kernel at phase 1
+  (8 rows active), at the refiner shape (8 rows active) and there with no
+  active row (its fixed cost);
 * the phase-1 (B=32, M=500) and phase-2 (B=32, M=2600, K=2) train steps,
   timed as ``chip_smoke.py`` [6] times them (host clock, 5 steps after a
-  warm-up step, ended by a sync), ``ROUNDS`` rounds of turns, with the min
-  kernel's wrapper pointed at each set's entry point in turn. The min
-  kernel is the only kernel of these steps that the sets differ in.
+  warm-up step, ended by a sync), ``ROUNDS`` rounds of turns, with the
+  paired and the min kernels' wrappers pointed at each set's entry points
+  in turn. They are the only kernels of these steps that the sets differ
+  in.
 
 The refiner-shape probe, for each set: ten back-to-back graph windows; five
 with the 8 active rows spread over the batch (rows 0, 4, 8, ...) in place
 of the first 8, which moves the live blocks to other SMs; single launches
 each followed by a sync, and after 0.5 s of idle. The card's SM clock is
-sampled with ``nvidia-smi`` beside it. Needs one CUDA device; writes
-OUT.json and prints a summary.
+sampled with ``nvidia-smi`` beside it.
+
+The SASS count (this checkout's kernel): ``cuobjdump -sass`` of the built
+library; in ``paired_dist`` at the phase-1 split, of the innermost loops
+(backward branches with no other inside) the one that holds the most
+``MUFU.RSQ``, one per pair: its instructions over its ``MUFU.RSQ`` count. Needs one CUDA device; writes OUT.json and
+prints a summary.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -70,6 +84,14 @@ class ScanSet:
             + [ctypes.c_void_p]
         self.min.restype = ctypes.c_int
         self.chunk = None   # model points per partial sum, found at first use
+        # a paired kernel that writes out in one launch has its split exposed
+        self.paired_scratch = not hasattr(libs["add_dist"],
+                                          "add_dist_paired_split")
+        self._paired = libs["add_dist"].add_dist_paired_launch
+        scratch = int(self.paired_scratch)
+        self._paired.argtypes = [ctypes.c_void_p] * (6 + scratch) \
+            + [ctypes.c_int] * (3 + scratch) + [ctypes.c_void_p]
+        self._paired.restype = ctypes.c_int
 
     @staticmethod
     def _stream():
@@ -101,10 +123,74 @@ class ScanSet:
                 return
         raise RuntimeError(f"min launch failed: {err}")
 
-    def serve_min_kernel(self) -> None:
-        """Point the port's min-kernel wrapper at this set's entry point."""
+    def paired_entry(self, R, t, model, target, act, out, b, n, m, stream):
+        """The paired kernel's entry point as the port's wrapper calls it
+        (pointers, sizes, stream); a set whose kernel needs ``partial``
+        (S = ceil(M / 256) chunks) gets it allocated here."""
+        if not self.paired_scratch:
+            return self._paired(R, t, model, target, act, out, b, n, m,
+                                stream)
+        s = -(-m // 256)
+        partial = torch.empty((s, b, n, 13), device="cuda")
+        return self._paired(R, t, model, target, act, partial.data_ptr(),
+                            out, b, n, m, s, stream)
+
+    def paired_dist(self, R, t, model, target, act, out):
+        err = self.paired_entry(R.data_ptr(), t.data_ptr(), model.data_ptr(),
+                                target.data_ptr(), act.data_ptr(),
+                                out.data_ptr(), R.shape[0], R.shape[1],
+                                model.shape[1], self._stream())
+        if err:
+            raise RuntimeError(f"paired launch failed: {err}")
+
+    def serve_kernels(self) -> None:
+        """Point the port's paired- and min-kernel wrappers at this set's
+        entry points."""
         add_dist.min_kernel._fn = self.min
         add_dist.min_kernel.chunk = self.chunk
+        add_dist.paired_kernel._fn = self.paired_entry
+
+
+def sass_per_pair(lib: Path, split: tuple[int, int]) -> dict:
+    """Lane instructions per (hypothesis, point) pair of the paired kernel
+    at ``split`` (threads per hypothesis, hypotheses per thread), from
+    ``cuobjdump -sass`` of ``lib``: of the innermost loops (backward branches
+    with no other inside), the one holding the most ``MUFU.RSQ``, one per pair, its instructions over its
+    ``MUFU.RSQ`` count, with the loop's opcodes counted."""
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    want = "paired_distILi{}ELi{}EE".format(*split)
+    for body in re.split(r"\n\s*Function : ", text)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if want not in name:
+            continue
+        ins = [(int(a, 16), op.strip()) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+        loops = []   # (first, last) address of each backward branch's range
+        for addr, op in ins:
+            hit = re.search(r"\bBRA\s+(?:\S+\s+)?0x([0-9a-f]+)", op)
+            if hit and int(hit.group(1), 16) < addr:
+                loops.append((int(hit.group(1), 16), addr))
+        best = None
+        for lo, hi in loops:
+            if any(lo <= a < b <= hi and (a, b) != (lo, hi) for a, b in loops):
+                continue   # not innermost
+            loop = [o for a, o in ins if lo <= a <= hi]
+            rsq = sum("MUFU.RSQ" in o for o in loop)
+            if rsq and (best is None or rsq > best[0]):
+                best = (rsq, loop)
+        if best is None:
+            return {"function": name, "error": "no loop with MUFU.RSQ found",
+                    "instructions": len(ins)}
+        rsq, loop = best
+        ops = collections.Counter(
+            re.sub(r"^@!?U?P\w+\s+", "", o).split()[0] for o in loop)
+        return {"function": name, "loop_instructions": len(loop),
+                "pairs_per_iteration": rsq,
+                "instructions_per_pair": len(loop) / rsq,
+                "opcodes": dict(ops.most_common())}
+    return {"error": f"no {want} in {lib}"}
 
 
 def built_set(csrc: Path | None, out: Path | None) -> ScanSet:
@@ -151,6 +237,7 @@ def main(argv=None) -> dict:
     p1 = cs.pose_problem(rng, b, cs.NUM_POINTS, cs.NUM_MESH)
     ref = cs.pose_problem(rng, b, 1, cs.REFINE_MESH)
     first8 = (torch.arange(b, device="cuda") < cs.TRAIN_SYM_ROWS).int()
+    last24 = 1 - first8
     spread = (torch.arange(b, device="cuda") % 4 == 0).int()
     none = torch.zeros(b, dtype=torch.int32, device="cuda")
 
@@ -161,9 +248,18 @@ def main(argv=None) -> dict:
     d1, d4 = outs(q), outs(q4)
     o1 = torch.empty((b, cs.NUM_POINTS, 13), device="cuda")
     o2 = torch.empty((b, 1, 13), device="cuda")
+    main2 = cs.pose_problem(rng, b, cs.NUM_POINTS, cs.REFINE_MESH)
+    o3 = torch.empty((b, cs.NUM_POINTS, 13), device="cuda")
+    all_rows = torch.ones(b, dtype=torch.int32, device="cuda")
     work = {
         "nn (250000, 500)": (lambda s: s.knn(q, r, *d1), 200),
         "nn_batched (8, 500000, 500)": (lambda s: s.knn(q4, r4, *d4), 20),
+        "paired phase 1 (32, 1000, 500)": (
+            lambda s: s.paired_dist(*p1, last24, o1), 200),
+        "paired phase-2 main loss (32, 1000, 2600)": (
+            lambda s: s.paired_dist(*main2, all_rows, o3), 50),
+        "paired refiner (32, 1, 2600)": (
+            lambda s: s.paired_dist(*ref, last24, o2), 200),
         "min phase 1 (32, 1000, 500)": (
             lambda s: s.min_dist(*p1, first8, o1), 20),
         "min refiner (32, 1, 2600)": (
@@ -207,13 +303,13 @@ def main(argv=None) -> dict:
         readings = {k: [] for k in sets}
         for _ in range(ROUNDS):
             for k in order:
-                sets[k].serve_min_kernel()
+                sets[k].serve_kernels()
                 readings[k].append(cs.step_ms(step, batch))
         result["step_turns"][name] = readings
         print(f"{name}: " + ", ".join(
             f"{k} median {np.median(v):.3f} ms {[round(x, 3) for x in v]}"
             for k, v in readings.items()), flush=True)
-    sets["change"].serve_min_kernel()
+    sets["change"].serve_kernels()
 
     probe = {}
     for k, s in sets.items():
@@ -242,6 +338,10 @@ def main(argv=None) -> dict:
               f"{spread_w}; single median {np.median(single):.5f} ms; "
               f"after idle {idle}; clock {probe[k]['clock']}", flush=True)
     result["refiner_probe"] = probe
+    result["paired_sass"] = sass_per_pair(
+        build.library_path("add_dist"),
+        add_dist.paired_split(cs.TRAIN_BATCH, cs.NUM_POINTS))
+    print(f"paired SASS: {json.dumps(result['paired_sass'])}", flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps({"card": card, "turns_ms": {

@@ -43,7 +43,7 @@ from densefusion_tpu_torch.train import (  # noqa: E402
 sys.path.insert(0, str(ROOT / "examples"))
 from gpu_serving_profile import _busy_ms  # noqa: E402
 
-DIST_KERNELS = ("paired_partial", "min_partial", "finalize")
+DIST_KERNELS = ("paired_dist", "min_partial", "finalize")
 
 
 class Segments:

@@ -71,6 +71,11 @@ def _torch(*arrays):
     (2, 5, 12, [True, True], False, {}),            # use_adds off: all ADD
     (2, 6, 20, [True, False], True, {"ties": True}),
     (2, 4, 8, [True, False], True, {"at_pose": True}),
+    # the paired kernel's split edges: fewer model points than the threads
+    # that share a hypothesis, one point, and the refiner's N=1 at M=2600
+    (2, 65, 7, [True, False], False, {}),
+    (2, 1, 1, [True, False], False, {}),
+    (2, 1, 2600, [True, False], False, {}),
 ])
 def test_plain_matches_pallas(rng, b, n, m, sym, use_adds, kw):
     R, t, model, target = _problem(rng, b, n, m, **kw)

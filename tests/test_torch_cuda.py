@@ -71,6 +71,30 @@ def test_add_dist_kernels_match_plain():
 
 
 @pytest.mark.cuda
+def test_paired_kernel_repeats_and_allocates_only_out():
+    """The paired kernel writes ``out`` in one launch with no scratch: two
+    launches on the phase-1 inputs give equal bits, a call counts one
+    launch, and the wrapper's peak allocation is its (B, N, 13) output."""
+    dev = _cuda()
+    import chip_smoke
+
+    args = chip_smoke.pose_problem(np.random.default_rng(6), 32, 1000, 500)
+    act = (torch.arange(32, device=dev) >= 8).int()
+    first = add_dist.paired_kernel(*args, act)
+    torch.cuda.synchronize()
+    before = add_dist.paired_kernel.launches
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    again = add_dist.paired_kernel(*args, act)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert add_dist.paired_kernel.launches == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    out_bytes = 32 * 1000 * 13 * 4
+    assert peak <= -(-out_bytes // 512) * 512
+
+
+@pytest.mark.cuda
 def test_nn_kernels_match_plain():
     """Kernel 3 (rank 2) and kernel 4 (batched) against their plain versions
     with ``chip_smoke.py``'s cases (the benchmark and phase-1 ADD-S shapes,
