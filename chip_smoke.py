@@ -12,7 +12,11 @@ fails. Phases, in order:
 2. build every kernel from ``densefusion_tpu_torch/csrc``, one ``nvcc`` per
    source, all started together;
 3. each kernel against its plain PyTorch version on the card: the remap at
-   the scoring shape, at a ragged shape with a gated row, on exact ties;
+   the scoring shape, at a ragged shape with a gated row, on exact ties
+   (duplicated refs, and refs at swapped x and y at the scoring shape and
+   across tiles, where a wrong winner moves the coordinates), on a
+   one-sample grid and with every row gated, twice on the same inputs
+   (bit-identical), each case with its split;
    the ADD (paired) and ADD-S (min) distance kernels at the phase-1 and
    refiner shapes, a ragged shape with a gated row, exact ties (also
    between targets at swapped x and y, across the split scan's warps and
@@ -64,12 +68,13 @@ fails. Phases, in order:
 6. timings: pose frames/s at B=64 under each decoder, the phase-1 and
    phase-2 step times at B=32, and each kernel's, its plain version's and
    the build's time (for the 1-NN kernels also ``torch.cdist(q, r)
-   .min(-1)``'s; for kernel 6 at its three shapes ``F.conv2d``'s, timed in
-   turns with it, and both its bounds, 3xTF32 and FFMA); the ADD-S min
-   kernel at the refiner shape in five windows, with the active rows first
-   and spread; for the redesigned kernels (1, 2, 3, 4) time over bound
-   and launches x (time - bound), for the paired kernel (1) at phase 1, the
-   phase-2 main loss and the refiner, with the split each takes;
+   .min(-1)``'s, for the remap ``torch.cdist`` + ``argmin`` + ``gather``;
+   for kernel 6 at its three shapes ``F.conv2d``'s, timed in turns with
+   it, and both its bounds, 3xTF32 and FFMA); the ADD-S min kernel at the
+   refiner shape in five windows, with the active rows first and spread;
+   for the redesigned kernels (1-5) time over bound and launches x (time -
+   bound), for the paired kernel (1) at phase 1, the phase-2 main loss and
+   the refiner, with the split each takes, and the remap's (5) split;
 7. a JSON line listing every ported kernel (``kernels``), with its launch
    count on the path that ported it (``launches``) and on each path
    (``launches_by_path``);
@@ -268,12 +273,36 @@ def make_frame(rng: np.random.Generator, n_obj: int = 5):
 # Phases
 # ---------------------------------------------------------------------------
 
+def swapped_remap_problem(rng, b, nq, nr):
+    """(query (b, nq, 3), ref (b, nr, 3)) as numpy float32 at the ADD-S
+    geometry (points of a 5 cm object, in metres) with exact ties between
+    refs at different places: refs k and k + nr/2 are (x, y, z) and (y, x,
+    z), and every query has q_x = q_y, so it scores both refs of a pair
+    alike, bit for bit (the same rounded products, added in the same order
+    up to commutation). The first of the pair must win; a wrong winner
+    swaps the x and y of the remapped coordinates."""
+    q = (0.05 * rng.standard_normal((b, nq, 3))).astype(np.float32)
+    q[..., 1] = q[..., 0]
+    half = (0.05 * rng.standard_normal((b, nr // 2, 3))).astype(np.float32)
+    return q, np.concatenate([half, half[..., [1, 0, 2]]], axis=1)
+
+
 def check_kernels(knn, rng) -> dict:
-    """Phase 3: the remap kernel against its plain version. Coordinates must
-    be equal; scores within 1e-5 relative (the kernel pins its rounding to
-    the plain version's, so they are expected to be bit-identical)."""
+    """Phase 3: the remap kernel against its plain version, coordinates and
+    scores equal (``torch.equal``: the kernel pins its rounding to the plain
+    version's): the scoring shape, a ragged shape past one ref tile with a
+    gated row, duplicated refs (the lowest index checked through the 1-NN
+    kernel, as equal twins give equal coordinates), refs tied at swapped x
+    and y at the scoring shape and at R = 2600 (twins in different tiles),
+    where a wrong winner moves the coordinates, a one-sample grid and every
+    row gated; then two launches on the scoring inputs, bit-identical. Each
+    case prints the split (warps per slot of queries) it ran at."""
     dev = torch.device("cuda")
     half = rng.standard_normal((4, 300, 3)).astype(np.float32)
+    # the cases after the first three draw from a generator of their own, so
+    # that `rng`, which makes the main path's weights after this phase, is
+    # left as the first three leave it
+    more = np.random.default_rng(SEED + 8)
     cases = [
         ("scoring shape (64, 500, 500)",
          rng.standard_normal((BATCH, NUM_MESH, 3)),
@@ -284,6 +313,14 @@ def check_kernels(knn, rng) -> dict:
         ("ties (4, 700, 2x300 duplicated refs)",
          rng.standard_normal((4, 700, 3)), np.concatenate([half, half], 1),
          None),
+        ("swapped ties (64, 500, 2x250 refs, x and y swapped)",
+         *swapped_remap_problem(more, BATCH, NUM_MESH, NUM_MESH), None),
+        ("swapped ties across tiles (64, 500, 2x1300 refs, x and y swapped)",
+         *swapped_remap_problem(more, BATCH, NUM_MESH, REFINE_MESH), None),
+        ("small grid (1, 37, 500)", more.standard_normal((1, 37, 3)),
+         more.standard_normal((1, NUM_MESH, 3)), None),
+        ("every row gated (8, 300, 700)", more.standard_normal((8, 300, 3)),
+         more.standard_normal((8, 700, 3)), [0] * 8),
     ]
     worst = 0.0
     for name, q, r, act in cases:
@@ -291,20 +328,42 @@ def check_kernels(knn, rng) -> dict:
         r = torch.from_numpy(r.astype(np.float32)).to(dev)
         a = None if act is None else torch.tensor(act, dtype=torch.int32,
                                                   device=dev)
+        split = knn.scan_split(*q.shape[:2], r.shape[1])
         kc, ks = knn.adds_remap_kernel(q, r, a)
         pc, ps = knn.adds_remap_plain(q, r, a)
         torch.cuda.synchronize()
-        if not torch.equal(kc, pc):
-            raise AssertionError(f"remap coords differ on {name}")
-        err = float((ks - ps).abs().max())
-        if not torch.allclose(ks, ps, rtol=1e-5, atol=0.0):
-            raise AssertionError(f"remap scores differ on {name}: {err}")
+        err = max(float((kc - pc).abs().max()), float((ks - ps).abs().max()))
+        if not torch.equal(kc, pc) or not torch.equal(ks, ps):
+            raise AssertionError(f"remap differs from plain on {name}: max "
+                                 f"abs err {err}")
+        note = ""
         if name.startswith("ties"):
             _, idx = knn.nearest_neighbor(q, r)
             if int(idx.max()) >= 300:
                 raise AssertionError("ties did not go to the lowest index")
+            note = "; the 1-NN kernel's indices all in the first copy"
+        if name.startswith("swapped"):
+            # a wrong twin would show wherever the winner has x != y
+            seen = float((pc[..., 0] != pc[..., 1]).float().mean())
+            if seen < 0.99:
+                raise AssertionError(f"remap {name}: a wrong twin would "
+                                     f"show on only {seen:.3f} of queries")
+            note = f"; a wrong twin would show on {seen:.4f} of queries"
+        if act is not None and not all(act) and (
+                kc[a == 0].any() or ks[a == 0].any()):
+            raise AssertionError(f"remap gated rows not 0 on {name}")
         worst = max(worst, err)
-        log(f"  remap kernel == plain on {name}: max score err {err}")
+        log(f"  remap kernel == plain on {name}, split {split}: coordinates "
+            f"and scores equal{note}")
+    q = torch.from_numpy(cases[0][1].astype(np.float32)).to(dev)
+    r = torch.from_numpy(cases[0][2].astype(np.float32)).to(dev)
+    first = knn.adds_remap_kernel(q, r)
+    again = knn.adds_remap_kernel(q, r)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError("remap: two launches on the scoring inputs "
+                             "differ")
+    log("  remap: two launches on the scoring inputs are bit-identical")
     return {"adds_remap": worst}
 
 
@@ -1311,10 +1370,20 @@ def run() -> None:
     wrapper_ms = cuda_ms(lambda: knn.adds_remap_kernel(pred, target),
                          iters=200)
     plain_ms = cuda_ms(lambda: knn.adds_remap_plain(pred, target), iters=50)
+
+    def remap_reference():
+        # the library's nearest coordinates are several calls (a distance
+        # matrix, its argmin, a gather): a yardstick, not a library_ms
+        i = torch.cdist(pred, target).argmin(-1)
+        return torch.gather(target, 1, i[..., None].expand(-1, -1, 3))
+
+    remap_ref_ms = cuda_ms(remap_reference, iters=50)
     bound_ms, bound_by = remap_bound_ms(BATCH, NUM_MESH, NUM_MESH, BATCH)
+    remap_split = knn.scan_split(BATCH, NUM_MESH, NUM_MESH)
     log(f"[6] remap (64, 500, 500): kernel {kernel_ms:.4f} ms on the card "
         f"(graph replays), {wrapper_ms:.4f} ms per eager wrapper call, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
+        f"plain {plain_ms:.4f} ms, torch.cdist + argmin + gather "
+        f"{remap_ref_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
         f"build {build_s:.2f} s; card {card}")
 
     from densefusion_tpu_torch.train import (
@@ -1458,6 +1527,13 @@ def run() -> None:
         f"phase-2 main loss {n_main}, refiner {n_p2 - n_main}, search "
         f"{n_search}; launches x (time - bound) "
         f"{excess['add_dist_paired']:.4f} ms; card {card}")
+    n = path_launches["serving"]["adds_remap"]
+    excess["adds_remap"] = n * (kernel_ms - bound_ms)
+    log(f"[6] redesigned adds_remap: {kernel_ms:.4f} ms / bound "
+        f"{bound_ms:.5f} = {kernel_ms / bound_ms:.2f}x, split {remap_split}; "
+        f"{n} launches on the serving path; launches x (time - bound) "
+        f"{excess['adds_remap']:.4f} ms; torch.cdist + argmin + gather (3 "
+        f"calls) {remap_ref_ms:.4f} ms; card {card}")
     for name in ("nn", "nn_batched"):
         k_ms, _, _, bnd, _, _ = nn_times[name]
         n = path_launches["search"][name]
@@ -1532,6 +1608,11 @@ def run() -> None:
         "max_abs_err": max_err["adds_remap"],
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
+        "library_note": "no single PyTorch call: torch.cdist(q, r)"
+                        ".argmin(-1) and a gather are three, timed as "
+                        "reference_ms",
+        "reference_ms": remap_ref_ms, "ratio": kernel_ms / bound_ms,
+        "split": remap_split, "launches_x_excess_ms": excess["adds_remap"],
         "wrapper_ms": wrapper_ms, "parity": "ok", "build_s": build_s,
     }]
     for name, line in (("add_dist_paired", 116), ("add_dist_min", 221)):

@@ -305,7 +305,7 @@ min_partial(const float* __restrict__ R, const float* __restrict__ t,
   using nn_scan::QT;
   using nn_scan::WARP;
   constexpr int SLOTS = nn_scan::WARPS / S;   // items per group
-  __shared__ float4 tile[nn_scan::TR];
+  __shared__ float4 tile[nn_scan::TILE];
   __shared__ nn_scan::MergeBuf<S> buf;
   const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
   const int seg = warp % S;

@@ -2,109 +2,112 @@
 // reference point and the winning score ||r||^2 - 2 q.r.
 //
 // Replaces the Pallas TPU kernel `_remap_kernel_bt`
-// (densefusion_tpu/ops/knn.py:303, launched by adds_remap_pallas_batched).
-// What it computes, not how the TPU blocks it:
+// (densefusion_tpu/ops/knn.py:303, launched by adds_remap_pallas_batched at
+// :414). What it computes, not how the TPU blocks it:
 //
 //   coords[b, q, :] = ref[b, argmin_r s(q, r), :]
 //   score[b, q]     = min_r s(q, r),   s(q, r) = ||r||^2 - 2 q.r
 //
 // ties going to the lowest reference index; rows with active[b] == 0 write
 // zeros. Outputs are (B, Q, 3) and (B, Q) float32, allocated by the caller.
-//
-// Design. One block per (sample, tile of TQ queries), one query per thread,
-// the query's running best score and coordinates in registers. The sample's
-// reference cloud is staged through shared memory in tiles of TR points as
-// float4 {x, y, z, ||r||^2}, so R is unbounded. The block reads its own
-// `active` flag (the TPU kernel took it by scalar prefetch) and the ragged
-// edges are masked by the bounds Q and R (the TPU kernel padded refs with
-// rsq = +inf).
-//
-// Arithmetic. K = 3, so no tensor cores and no TF32: plain fp32 on the CUDA
-// cores. The rounding is pinned with __fmul_rn / __fadd_rn, which nvcc
-// never contracts into FMAs, in the order of the plain PyTorch version
-// (ops/knn.py `_scores`): rsq = (x*x + y*y) + z*z, dot = (qx*rx + qy*ry) +
-// qz*rz, s = rsq - 2*dot. The kernel's scores are thus bit-identical to the
-// plain version's, so their argmins, ties included, agree exactly. A score
-// replaces the running best only when strictly smaller, and refs are
-// scanned in ascending order, so ties go to the lowest index.
+// The score is the search's own, with no ||q||^2 added (kernel 3 adds it;
+// the ADD-S loss adds it outside).
 //
 // Bound on the H100. About 8 fp32 operations per (query, ref) pair against
-// about 67 TFLOP/s of non-tensor fp32, and 12 bytes in per point and 16 out
-// per query: at the main path's B=64, Q=R=500 that is ~2 us of arithmetic
-// and ~0.4 us of memory traffic, so a launch (several us) dominates.
+// about 67 TFLOP/s of non-tensor fp32; 12 bytes in per point and 16 out per
+// query. At the serving path's scoring shape B = 64, Q = R = 500 that is
+// ~1.9 us of arithmetic and ~0.4 us of memory traffic: operations-bound,
+// and below a graph replay's launch floor (~4-7 us).
+//
+// Design: the search of csrc/nn_scan.cuh (`nn_scan::search`), the same
+// body as the 1-NN kernels of csrc/nn.cu; only the outputs differ. A block
+// of 8 warps covers 8 / S slots of 128 queries (4 per lane) of one sample;
+// nn_scan::nn_split picks S (at the scoring shape 8: 256 blocks, each warp
+// scanning every eighth group of 8 refs of one slot), the S partial
+// winners merge exactly, and the slot's first warp resolves the winning
+// group alone (`resolve_alone`: a group's loads overlap, and the staged
+// groups are padded so that its lanes' reads do not conflict). A block
+// reads its row's `active` flag once, before it stages anything (the TPU
+// kernel took it by scalar prefetch); a gated row's block writes zeros and
+// returns, which is uniform across the block, so no barrier is skipped by
+// part of it. The main path passes no `active`; a persistent grid over the
+// active rows (kernel 2's) would buy nothing there. Once the search has
+// resolved the winner's index, its coordinates are copied from the staged
+// tile when the cloud fits one (R <= 1024), else from `ref` in global
+// memory: a copy, so exact. The rounding is pinned (no FMAs: the header
+// says why), so the scores are bit-identical to the plain version's
+// (ops/knn.py `_scores`) and so are the coordinates, ties included. Where
+// every score of a query is +inf or NaN, the search's winning group
+// stands: its first ref's coordinates, with the best score (nn.cu does the
+// same); nothing on the driven paths gives such inputs. The first design
+// (one query per lane, 128-thread blocks, a compare and four selects per
+// pair) ran at 7.1-7.2x the bound; the scan costs ~8 lane instructions per
+// pair, and at the scoring shape the launch, the staging, the merge and
+// the resolve, each a fixed cost, add up to about as much as the scan.
+//
+// Not taken, as in csrc/nn_scan.cuh: FMAs (another nearest ref for a few
+// queries in 20,000, an end to bit parity with the plain version) and the
+// tensor cores (K = 3; a TF32 or 3xTF32 product would round the scores
+// differently from the plain version).
 
 #include <cuda_runtime.h>
 
+#include "nn_scan.cuh"
+
 namespace {
 
-constexpr int TQ = 128;   // queries per block (one per thread)
-constexpr int TR = 1024;  // refs per shared-memory tile (16 KB)
-
-__global__ void __launch_bounds__(TQ)
+template <int S>
+__global__ void __launch_bounds__(nn_scan::THREADS)
 adds_remap_kernel(const float* __restrict__ query,   // (B, Q, 3)
                   const float* __restrict__ ref,     // (B, R, 3)
                   const int* __restrict__ active,    // (B,) or nullptr
                   float* __restrict__ coords,        // (B, Q, 3)
                   float* __restrict__ score,         // (B, Q)
                   int Q, int R) {
-  __shared__ float4 tile[TR];
+  __shared__ float4 tile[nn_scan::TILE];
+  __shared__ nn_scan::MergeBuf<S> buf;
+  using nn_scan::QT;
+  using nn_scan::WARP;
   const int b = blockIdx.y;
-  const int q = blockIdx.x * TQ + threadIdx.x;
-  const bool in_range = q < Q;
-  const long long qo = (long long)b * Q + q;
+  const long long q0 = nn_scan::first_query<S>();
+  const float* rb = ref + (long long)b * R * 3;
+  float* cb = coords + (long long)b * Q * 3;
+  float* sb = score + (long long)b * Q;
 
-  if (active != nullptr && active[b] == 0) {   // uniform across the block
-    if (in_range) {
-      coords[qo * 3 + 0] = 0.f;
-      coords[qo * 3 + 1] = 0.f;
-      coords[qo * 3 + 2] = 0.f;
-      score[qo] = 0.f;
+  if (active != nullptr && active[b] == 0) {   // one row per block: uniform
+    if (threadIdx.x / WARP % S == 0) {         // the slot's first warp
+#pragma unroll
+      for (int j = 0; j < QT; ++j) {
+        const long long q = q0 + j * WARP;
+        if (q < Q) {
+          cb[q * 3 + 0] = cb[q * 3 + 1] = cb[q * 3 + 2] = 0.f;
+          sb[q] = 0.f;
+        }
+      }
     }
     return;
   }
 
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (in_range) {
-    qx = query[qo * 3 + 0];
-    qy = query[qo * 3 + 1];
-    qz = query[qo * 3 + 2];
-  }
-  float best = __int_as_float(0x7f800000);    // +inf
-  float bx = 0.f, by = 0.f, bz = 0.f;
-
-  const float* rb = ref + (long long)b * R * 3;
-  for (int t0 = 0; t0 < R; t0 += TR) {
-    const int n = min(TR, R - t0);
-    for (int i = threadIdx.x; i < n; i += TQ) {
-      const float x = rb[(long long)(t0 + i) * 3 + 0];
-      const float y = rb[(long long)(t0 + i) * 3 + 1];
-      const float z = rb[(long long)(t0 + i) * 3 + 2];
-      const float rsq = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                                  __fmul_rn(z, z));
-      tile[i] = make_float4(x, y, z, rsq);
-    }
-    __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      const float4 r = tile[i];
-      const float dot = __fadd_rn(__fadd_rn(__fmul_rn(qx, r.x),
-                                            __fmul_rn(qy, r.y)),
-                                  __fmul_rn(qz, r.z));
-      const float s = __fsub_rn(r.w, __fmul_rn(2.f, dot));
-      if (s < best) {
-        best = s;
-        bx = r.x;
-        by = r.y;
-        bz = r.z;
+  nn_scan::Lane l;
+  if (!nn_scan::search<S>(l, tile, buf, query + (long long)b * Q * 3, rb,
+                          q0, Q, R))
+    return;
+#pragma unroll
+  for (int j = 0; j < QT; ++j) {
+    const long long q = q0 + j * WARP;
+    if (q < Q) {
+      const long long k = l.idx[j];
+      if (R <= nn_scan::TR) {   // the tile holds the whole cloud
+        const float4 r = tile[nn_scan::pos(k)];
+        cb[q * 3 + 0] = r.x;
+        cb[q * 3 + 1] = r.y;
+        cb[q * 3 + 2] = r.z;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) cb[q * 3 + c] = rb[k * 3 + c];
       }
+      sb[q] = l.best[j];
     }
-    __syncthreads();
-  }
-
-  if (in_range) {
-    coords[qo * 3 + 0] = bx;
-    coords[qo * 3 + 1] = by;
-    coords[qo * 3 + 2] = bz;
-    score[qo] = best;
   }
 }
 
@@ -117,8 +120,12 @@ extern "C" int adds_remap_launch(const float* query, const float* ref,
                                  const int* active, float* coords,
                                  float* score, int B, int Q, int R,
                                  void* stream) {
-  const dim3 grid((Q + TQ - 1) / TQ, B);
-  adds_remap_kernel<<<grid, TQ, 0, static_cast<cudaStream_t>(stream)>>>(
-      query, ref, active, coords, score, Q, R);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return nn_scan::dispatch(nn_scan::nn_split(B, Q, R), [&](auto split) {
+    constexpr int S = decltype(split)::value;
+    adds_remap_kernel<S>
+        <<<nn_scan::search_grid<S>(B, Q), nn_scan::THREADS, 0, st>>>(
+            query, ref, active, coords, score, Q, R);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -24,7 +24,8 @@
 // query. At the KNN benchmark's Q = 250,000, R = 500 that is ~15 us of
 // arithmetic and ~1.5 us of memory traffic: operations-bound.
 //
-// Design: the scan of csrc/nn_scan.cuh. A block of 8 warps covers 8 / S
+// Design: the scan of csrc/nn_scan.cuh (`nn_scan::search`, which the remap
+// of csrc/adds_remap.cu runs too). A block of 8 warps covers 8 / S
 // slots of 128 queries (4 per lane) of one sample; S warps share a slot
 // where the grid would otherwise not fill the card (nn_scan::nn_split picks
 // S from the shape: at least two blocks per SM, while each warp keeps at
@@ -44,54 +45,24 @@
 
 namespace {
 
-using nn_scan::QT;
-using nn_scan::SLOT;
-using nn_scan::THREADS;
-using nn_scan::TR;
-using nn_scan::WARP;
-using nn_scan::WARPS;
-
 template <int S>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(nn_scan::THREADS)
 nn_kernel(const float* __restrict__ query,   // (B, Q, 3)
           const float* __restrict__ ref,     // (B, R, 3)
           float* __restrict__ dist,          // (B, Q)
           long long* __restrict__ idx,       // (B, Q)
           int Q, int R) {
-  __shared__ float4 tile[TR];
+  __shared__ float4 tile[nn_scan::TILE];
   __shared__ nn_scan::MergeBuf<S> buf;
   const int b = blockIdx.y;
-  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
-  const int seg = warp % S;
-  // this lane's query j is q0 + j * WARP
-  const long long q0 =
-      ((long long)blockIdx.x * (WARPS / S) + warp / S) * SLOT + lane;
-  const float* qb = query + (long long)b * Q * 3;
-
+  const long long q0 = nn_scan::first_query<S>();
   nn_scan::Lane l;
-  l.reset();
+  if (!nn_scan::search<S>(l, tile, buf, query + (long long)b * Q * 3,
+                          ref + (long long)b * R * 3, q0, Q, R))
+    return;
 #pragma unroll
-  for (int j = 0; j < QT; ++j) {
-    const long long q = q0 + j * WARP;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) l.q[j][c] = q < Q ? qb[q * 3 + c] : 0.f;
-  }
-
-  const float* rb = ref + (long long)b * R * 3;
-  for (int t0 = 0; t0 < R; t0 += TR) {
-    const int n = min(TR, R - t0);
-    nn_scan::stage(tile, rb, t0, n);
-    __syncthreads();
-    l.scan<S>(tile, n, t0, seg);
-    __syncthreads();
-  }
-  nn_scan::merge<S>(buf, l, warp, seg, lane);
-  if (seg != 0) return;
-  l.resolve(tile, rb, R);
-
-#pragma unroll
-  for (int j = 0; j < QT; ++j) {
-    const long long q = q0 + j * WARP;
+  for (int j = 0; j < nn_scan::QT; ++j) {
+    const long long q = q0 + j * nn_scan::WARP;
     if (q < Q) {
       const long long o = (long long)b * Q + q;
       dist[o] = __fadd_rn(l.best[j],
@@ -106,9 +77,8 @@ int launch(const float* query, const float* ref, float* dist, long long* idx,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return nn_scan::dispatch(nn_scan::nn_split(B, Q, R), [&](auto split) {
     constexpr int S = decltype(split)::value;
-    const long long per_block = SLOT * (WARPS / S);
-    const dim3 grid((unsigned)((Q + per_block - 1) / per_block), B);
-    nn_kernel<S><<<grid, THREADS, 0, st>>>(query, ref, dist, idx, Q, R);
+    nn_kernel<S><<<nn_scan::search_grid<S>(B, Q), nn_scan::THREADS, 0, st>>>(
+        query, ref, dist, idx, Q, R);
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -1,6 +1,7 @@
 // The nearest-neighbour scan shared by csrc/nn.cu (1-NN search, TPU kernels
-// 3 and 4) and csrc/add_dist.cu (ADD-S min distance, TPU kernel 2): for a
-// set of queries q, the (score, index) of the reference r that minimises
+// 3 and 4), csrc/adds_remap.cu (ADD-S remap, TPU kernel 5) and
+// csrc/add_dist.cu (ADD-S min distance, TPU kernel 2): for a set of queries
+// q, the (score, index) of the reference r that minimises
 //
 //   s(q, r) = ||r||^2 - 2 q.r,   ties to the lowest index,
 //
@@ -28,7 +29,12 @@
 // and the S partial winners merge in shared memory with the order of
 // `beats`: the smaller score wins, an equal score goes to the lower group.
 // Each warp's winner is the first minimal group among its own groups, so
-// the merge gives the first minimal group overall, whatever S.
+// the merge gives the first minimal group overall, whatever S. The resolve
+// is short but latency-bound where the slot's first warp does it alone
+// after the merge (S > 1): there the search kernels read a whole group
+// before comparing (`resolve_alone`). Each group of staged refs is
+// followed by one unused float4, so that the 32 lanes' reads of 32
+// different winning groups do not all fall on one shared-memory bank.
 //
 // Not taken, and why:
 // * FMAs. An FMA-chained score picks another nearest ref than the pinned
@@ -41,7 +47,7 @@
 //   rounded steps and the min set the floor, not the dot, and a TF32 or 3xTF32 product of (-2q, 1) and
 //   (r, ||r||^2) would round differently from the plain version.
 // * cp.async / TMA staging, or a tile that holds a whole 2600-point cloud.
-//   A tile is 16 KB and its copy a few percent of the scan at the driven
+//   A tile is 18 KB and its copy a few percent of the scan at the driven
 //   shapes; staging the refiner's whole cloud at once (41.6 KB of dynamic
 //   shared memory) bought nothing there and cost ~5% at phase 1.
 
@@ -59,7 +65,8 @@ constexpr int SLOT = WARP * QT;      // queries per slot (one warp's worth)
 constexpr int WARPS = 8;             // warps per block
 constexpr int THREADS = WARP * WARPS;
 constexpr int G = 8;                 // refs per group
-constexpr int TR = 1024;             // refs per staged tile (16 KB), G | TR
+constexpr int TR = 1024;             // refs per staged tile, G | TR
+constexpr int TILE = TR / G * (G + 1);   // its float4 positions (18 KB)
 
 // The SM count of the device current at the first call, read once per
 // process. A card with another count only gets another split or persistent
@@ -138,6 +145,12 @@ __device__ __forceinline__ float sq3(float a, float b, float c) {
                    __fmul_rn(c, c));
 }
 
+// The float4 position in a tile of its ref r: each group of G refs is
+// followed by one unused position. The resolve reads, in each lane, a ref of
+// that lane's own winning group; unpadded, every group would start on the
+// same shared-memory bank, and those reads would conflict 32 ways.
+__device__ __forceinline__ int pos(int r) { return r + r / G; }
+
 __device__ __forceinline__ float4 staged(const float* p) {
   const float x = p[0], y = p[1], z = p[2];
   return make_float4(x, y, z, sq3(x, y, z));
@@ -156,15 +169,16 @@ __device__ __forceinline__ bool beats(float s, int g, float s2, int g2) {
   return s < s2 || (s == s2 && g < g2);
 }
 
-// Stages refs [t0, t0 + n) of the cloud `rb` (R, 3) into `tile` with all
-// THREADS threads of the block, and pads the last group with refs whose
-// score is +inf (||r||^2 = +inf), which never win.
+// Stages refs [t0, t0 + n) of the cloud `rb` (R, 3) into `tile` (ref i at
+// pos(i)) with all THREADS threads of the block, and pads the last group
+// with refs whose score is +inf (||r||^2 = +inf), which never win.
 __device__ __forceinline__ void stage(float4* tile, const float* rb, int t0,
                                       int n) {
   const int padded = (n + G - 1) / G * G;
   for (int i = threadIdx.x; i < padded; i += THREADS)
-    tile[i] = i < n ? staged(rb + (long long)(t0 + i) * 3)
-                    : make_float4(0.f, 0.f, 0.f, __int_as_float(0x7f800000));
+    tile[pos(i)] = i < n ? staged(rb + (long long)(t0 + i) * 3)
+                          : make_float4(0.f, 0.f, 0.f,
+                                        __int_as_float(0x7f800000));
 }
 
 // Per lane: QT queries, their running best scores and groups; after
@@ -189,7 +203,7 @@ struct Lane {
                                        int seg) {
     const int groups = (n + G - 1) / G;
     for (int g = seg; g < groups; g += S) {
-      const float4* p = tile + g * G;
+      const float4* p = tile + g * (G + 1);
       float m[QT];
       const float4 r0 = p[0];
 #pragma unroll
@@ -226,12 +240,54 @@ struct Lane {
       for (int i = G - 1; i >= 0; --i) {
         const int r = base + i;
         if (r < R) {
-          const float s = score(q[j], R <= TR ? tile[r]
+          const float s = score(q[j], R <= TR ? tile[pos(r)]
                                               : staged(rb + (long long)r * 3));
           if (s == best[j]) {
             k = r;
             sk = s;
           }
+        }
+      }
+      idx[j] = k;
+      best[j] = sk;
+    }
+  }
+
+  // `resolve` for a warp that resolves its slot alone, after the merge
+  // (S > 1 in the search kernels): a group's G refs are all read and scored
+  // before any is compared, with no branch between them, so that their
+  // loads overlap; a compare and branch per ref left the warp waiting out
+  // each load in turn. Where every warp resolves a slot of its own (S = 1)
+  // the loads of many warps overlap anyway, and `resolve`'s fewer registers
+  // leave room for more blocks; the min kernel, held to 85 registers for
+  // three blocks per SM, keeps `resolve` too.
+  __device__ __forceinline__ void resolve_alone(const float4* tile,
+                                                const float* rb, int R) {
+    if (R <= TR)
+      resolve_from(R, [&](int r) { return tile[pos(r)]; });
+    else
+      resolve_from(R, [&](int r) {
+        return staged(rb + (long long)min(r, R - 1) * 3);
+      });
+  }
+
+  // `resolve_alone` with the staged ref r from `ref(r)`, which must be
+  // readable up to the end of r's group.
+  template <class F>
+  __device__ __forceinline__ void resolve_from(int R, F ref) {
+#pragma unroll
+    for (int j = 0; j < QT; ++j) {
+      const int base = grp[j] * G;
+      float s[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i) s[i] = score(q[j], ref(base + i));
+      int k = base;
+      float sk = best[j];
+#pragma unroll
+      for (int i = G - 1; i >= 0; --i) {
+        if (base + i < R && s[i] == best[j]) {
+          k = base + i;
+          sk = s[i];
         }
       }
       idx[j] = k;
@@ -278,6 +334,58 @@ __device__ __forceinline__ void merge(MergeBuf<S>& buf, Lane& l, int warp,
       }
     }
   }
+}
+
+// The grid of a search kernel (nn.cu, adds_remap.cu) at split S: blocks of
+// WARPS / S slots of one sample's queries along x, the B samples along y.
+template <int S>
+inline dim3 search_grid(int B, long long Q) {
+  const long long per_block = SLOT * (WARPS / S);
+  return dim3((unsigned)((Q + per_block - 1) / per_block), B);
+}
+
+// The first of this lane's QT queries in the block of `search_grid<S>`: its
+// query j is the result + j * WARP.
+template <int S>
+__device__ __forceinline__ long long first_query() {
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  return ((long long)blockIdx.x * (WARPS / S) + warp / S) * SLOT + lane;
+}
+
+// The body of the search kernels: loads this lane's queries (q0 + j * WARP
+// of the sample's `qb` (Q, 3); zeros past Q), scans the sample's cloud `rb`
+// (R, 3) tile by tile, merges the slot's S warps and resolves. Every thread
+// of the block calls it (it synchronises). Returns true in the slot's first
+// warp (seg 0), whose lanes then hold each query's `idx` and `best`; when
+// R <= TR, `tile` still holds the whole cloud.
+template <int S>
+__device__ __forceinline__ bool search(Lane& l, float4* tile,
+                                       MergeBuf<S>& buf, const float* qb,
+                                       const float* rb, long long q0, int Q,
+                                       int R) {
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const int seg = warp % S;
+  l.reset();
+#pragma unroll
+  for (int j = 0; j < QT; ++j) {
+    const long long q = q0 + j * WARP;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) l.q[j][c] = q < Q ? qb[q * 3 + c] : 0.f;
+  }
+  for (int t0 = 0; t0 < R; t0 += TR) {
+    const int n = min(TR, R - t0);
+    stage(tile, rb, t0, n);
+    __syncthreads();
+    l.scan<S>(tile, n, t0, seg);
+    __syncthreads();
+  }
+  merge<S>(buf, l, warp, seg, lane);
+  if (seg != 0) return false;
+  if constexpr (S > 1)
+    l.resolve_alone(tile, rb, R);
+  else
+    l.resolve(tile, rb, R);
+  return true;
 }
 
 }  // namespace nn_scan

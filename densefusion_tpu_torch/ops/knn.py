@@ -131,9 +131,10 @@ class NNKernel(build.Kernel):
 def scan_split(bsz: int, n: int, m: int, min_kernel: bool = False) -> int:
     """Warps per slot of queries (1, 2, 4 or 8) that the shared scan of
     ``csrc/nn_scan.cuh`` takes: for B samples of n queries against m refs
-    (``csrc/nn.cu``) or, with ``min_kernel``, for B rows of n hypotheses of
-    m model points (the min kernel of ``csrc/add_dist.cu``). Above 1, that
-    many warps share each query and merge their winners. Needs the card."""
+    (``csrc/nn.cu``, ``csrc/adds_remap.cu``) or, with ``min_kernel``, for B
+    rows of n hypotheses of m model points (the min kernel of
+    ``csrc/add_dist.cu``). Above 1, that many warps share each query and
+    merge their winners. Needs the card."""
     fn = build.load("nn").scan_split
     fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
     return fn(int(min_kernel), bsz, n, m)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the distance and search kernels that PRs 6 and 8 redesigned (kernel
-1, the ADD paired distance; kernel 2, the ADD-S min distance; kernels 3 and
-4, the 1-NN search) of this checkout against those of another checkout, in
+"""Time the distance and search kernels (kernel 1, the ADD paired distance;
+kernel 2, the ADD-S min distance; kernels 3 and 4, the 1-NN search; kernel
+5, the ADD-S remap) of this checkout against those of another checkout, in
 turns on one card, with the train steps that launch kernels 1 and 2; probe
 the min kernel's time at the refiner shape; and count the paired kernel's
 lane instructions per (hypothesis, point) pair in its SASS.
@@ -9,9 +9,10 @@ lane instructions per (hypothesis, point) pair in its SASS.
     python3 examples/gpu_scan_turns.py OUT.json [--parent DIR]
 
 ``DIR`` is the ``densefusion_tpu_torch/csrc`` directory of the other
-checkout (for example one unpacked with ``git archive``). Its ``nn.cu`` and
-``add_dist.cu`` are built by ``ops/build.py`` (the port's own flags) into a
-directory of their own and loaded with ctypes; both sets take the same C
+checkout (for example one unpacked with ``git archive``). Its ``nn.cu``,
+``add_dist.cu`` and ``adds_remap.cu`` are built by ``ops/build.py`` (the
+port's own flags) into a directory of their own and loaded with ctypes;
+both sets take the same C
 entry points, except that a paired entry point of a set without
 ``add_dist_paired_split`` (the earlier two-launch kernel) also takes a
 scratch ``partial``, which the set allocates. Readings go in turns (parent,
@@ -23,7 +24,12 @@ change, change, parent; change, change without ``DIR``):
   main loss (B=32, N=1000, M=2600, every row active) and at the refiner
   shape (B=32, N=1, M=2600, 24 rows active); the min kernel at phase 1
   (8 rows active), at the refiner shape (8 rows active) and there with no
-  active row (its fixed cost);
+  active row (its fixed cost); the remap at the scoring shape (B=64,
+  Q=R=500) and at (3, 1003, 2600) with one gated row, and at the scoring
+  shape with every row gated (the launch and the zero writes alone), each
+  of these two also per launch of 20 captured in one graph (a single
+  launch's replay has a cost of its own, several us, which bounds a short
+  kernel's reading from below);
 * the phase-1 (B=32, M=500) and phase-2 (B=32, M=2600, K=2) train steps,
   timed as ``chip_smoke.py`` [6] times them (host clock, 5 steps after a
   warm-up step, ended by a sync), ``ROUNDS`` rounds of turns, with the
@@ -83,6 +89,10 @@ class ScanSet:
         self.min.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         self.min.restype = ctypes.c_int
+        self.remap = libs["adds_remap"].adds_remap_launch
+        self.remap.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        self.remap.restype = ctypes.c_int
         self.chunk = None   # model points per partial sum, found at first use
         # a paired kernel that writes out in one launch has its split exposed
         self.paired_scratch = not hasattr(libs["add_dist"],
@@ -108,6 +118,14 @@ class ScanSet:
                            self._stream())
         if err:
             raise RuntimeError(f"nn launch failed: {err}")
+
+    def adds_remap(self, q, r, act, coords, score):
+        err = self.remap(q.data_ptr(), r.data_ptr(),
+                         None if act is None else act.data_ptr(),
+                         coords.data_ptr(), score.data_ptr(), *q.shape[:2],
+                         r.shape[1], self._stream())
+        if err:
+            raise RuntimeError(f"remap launch failed: {err}")
 
     def min_dist(self, R, t, model, target, act, out):
         b, n, m = R.shape[0], R.shape[1], model.shape[1]
@@ -194,9 +212,9 @@ def sass_per_pair(lib: Path, split: tuple[int, int]) -> dict:
 
 
 def built_set(csrc: Path | None, out: Path | None) -> ScanSet:
-    """nn.cu and add_dist.cu of ``csrc`` (the package's by default), built
-    by ``ops/build.py`` into ``out`` and loaded."""
-    names = ("nn", "add_dist")
+    """nn.cu, add_dist.cu and adds_remap.cu of ``csrc`` (the package's by
+    default), built by ``ops/build.py`` into ``out`` and loaded."""
+    names = ("nn", "add_dist", "adds_remap")
     build.build_all(names, csrc, out)
     return ScanSet({n: ctypes.CDLL(str(build.library_path(n, csrc, out)))
                     for n in names})
@@ -251,6 +269,16 @@ def main(argv=None) -> dict:
     main2 = cs.pose_problem(rng, b, cs.NUM_POINTS, cs.REFINE_MESH)
     o3 = torch.empty((b, cs.NUM_POINTS, 13), device="cuda")
     all_rows = torch.ones(b, dtype=torch.int32, device="cuda")
+    rq, rr = pts(cs.BATCH, cs.NUM_MESH, 3), pts(cs.BATCH, cs.NUM_MESH, 3)
+    gq, gr = pts(3, 1003, 3), pts(3, cs.REFINE_MESH, 3)
+    gated = torch.tensor([1, 0, 1], dtype=torch.int32, device="cuda")
+
+    def remap_outs(x):
+        return (torch.empty(x.shape, device="cuda"),
+                torch.empty(x.shape[:-1], device="cuda"))
+
+    ro, go = remap_outs(rq), remap_outs(gq)
+    no_rows = torch.zeros(cs.BATCH, dtype=torch.int32, device="cuda")
     work = {
         "nn (250000, 500)": (lambda s: s.knn(q, r, *d1), 200),
         "nn_batched (8, 500000, 500)": (lambda s: s.knn(q4, r4, *d4), 20),
@@ -266,18 +294,34 @@ def main(argv=None) -> dict:
             lambda s: s.min_dist(*ref, first8, o2), 200),
         "min refiner, no active row": (
             lambda s: s.min_dist(*ref, none, o2), 200),
+        "remap scoring (64, 500, 500)": (
+            lambda s: s.adds_remap(rq, rr, None, *ro), 200),
+        "remap (3, 1003, 2600), one gated row": (
+            lambda s: s.adds_remap(gq, gr, gated, *go), 200),
+        # per launch in a graph of 20: without the single-launch replay's
+        # own cost, which bounds a short kernel's reading from below
+        "remap scoring, per launch of 20 in one graph": (
+            lambda s: [s.adds_remap(rq, rr, None, *ro) for _ in range(20)],
+            20, 20),
+        # every row gated: the launch and the zero writes alone
+        "remap scoring, every row gated": (
+            lambda s: s.adds_remap(rq, rr, no_rows, *ro), 200),
+        "remap scoring, every row gated, per launch of 20 in one graph": (
+            lambda s: [s.adds_remap(rq, rr, no_rows, *ro) for _ in range(20)],
+            20, 20),
     }
     for s in sets.values():    # warm up, and fix each set's chunk
-        for fn, _ in work.values():
+        for fn, *_ in work.values():
             fn(s)
     torch.cuda.synchronize()
 
     result = {"card": card, "clock_before": sm_clock(), "turns": {}}
-    for name, (fn, replays) in work.items():
+    for name, (fn, replays, *per) in work.items():
+        launches = per[0] if per else 1   # launches per call of fn
         readings = {k: [] for k in sets}
         for k in order:
             readings[k].append(cs.graph_ms(lambda: fn(sets[k]),
-                                           replays=replays))
+                                           replays=replays) / launches)
         result["turns"][name] = readings
         print(f"{name}: " + ", ".join(
             f"{k} {np.mean(v):.5f} ms {v}" for k, v in readings.items()),

@@ -57,6 +57,59 @@ def test_remap_kernel_ties_pick_lowest_index():
                                                                      3)))
 
 
+def _remap_case(kind, rng):
+    """(query, ref, active) as numpy for the remap's card cases: refs tied at
+    swapped x and y (``chip_smoke.swapped_remap_problem``) at the scoring
+    shape and across ref tiles, a one-sample grid, every row gated."""
+    import chip_smoke
+
+    if kind.startswith("swapped"):
+        nr = 2600 if kind.endswith("tiles") else 500
+        return (*chip_smoke.swapped_remap_problem(rng, 64, 500, nr), None)
+    if kind == "small grid":
+        return (rng.standard_normal((1, 37, 3)),
+                rng.standard_normal((1, 500, 3)), None)
+    return (rng.standard_normal((8, 300, 3)), rng.standard_normal((8, 700, 3)),
+            np.zeros(8, np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["swapped ties", "swapped ties across tiles",
+                                  "small grid", "every row gated"])
+def test_remap_kernel_edge_cases_match_plain(kind):
+    """A wrong tie winner moves the coordinates (x and y swap); a small grid
+    splits the scan across warps; gated rows are zeros: all equal to the
+    plain version."""
+    dev = _cuda()
+    q, r, act = _remap_case(kind, np.random.default_rng(7))
+    q = torch.from_numpy(q.astype(np.float32)).to(dev)
+    r = torch.from_numpy(r.astype(np.float32)).to(dev)
+    a = None if act is None else torch.from_numpy(act).to(dev)
+    kc, ks = knn.adds_remap_kernel(q, r, a)
+    pc, ps = knn.adds_remap_plain(q, r, a)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, pc)
+    assert torch.equal(ks, ps)
+    if kind.startswith("swapped"):
+        assert float((pc[..., 0] != pc[..., 1]).float().mean()) > 0.99
+    if act is not None:
+        assert not kc.any() and not ks.any()
+
+
+@pytest.mark.cuda
+def test_remap_kernel_repeats_bit_identical():
+    dev = _cuda()
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.standard_normal((64, 500, 3))
+                         .astype(np.float32)).to(dev)
+    r = torch.from_numpy(rng.standard_normal((64, 500, 3))
+                         .astype(np.float32)).to(dev)
+    first = knn.adds_remap_kernel(q, r)
+    again = knn.adds_remap_kernel(q, r)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
 @pytest.mark.cuda
 def test_add_dist_kernels_match_plain():
     """Both distance kernels against their plain versions and the autograd

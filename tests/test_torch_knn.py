@@ -8,7 +8,10 @@ benchmark CLI on the CPU.
 Tolerances: indices and remapped coordinates are compared EXACTLY (any
 argmin disagreement shows, ties included); distances and scores to
 rtol/atol 1e-5, since the Pallas kernels form q.r by a matmul and the port
-by three rounded products; gradients to rtol 1e-4 / atol 1e-5.
+by three rounded products; gradients to rtol 1e-4 / atol 1e-5. On exact
+ties between refs at different places (x and y swapped) that rounding may
+pick the other twin in the Pallas kernel: there its coordinates are held
+to either twin and its scores to atol 1e-6.
 """
 
 import numpy as np
@@ -86,6 +89,60 @@ def test_remap_ties_pick_lowest_index(rng):
 def test_remap_active_mask(rng):
     q = rng.standard_normal((3, 100, 3)).astype(np.float32)
     r = rng.standard_normal((3, 80, 3)).astype(np.float32)
+    active = np.array([1, 0, 1], np.int32)
+    got_c, got_s = _plain(q, r, active)
+    want_c, want_s = _pallas(q, r, active.astype(bool))
+    assert not got_c[1].any() and not got_s[1].any()
+    np.testing.assert_array_equal(got_c, want_c)
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-5)
+
+
+def _swapped_ties(rng, b, nq, nr):
+    """Refs k and k + nr/2 at (x, y, z) and (y, x, z), queries with q_x =
+    q_y, at the ADD-S geometry (a 5 cm object): each query scores both refs
+    of a pair alike, bit for bit."""
+    import chip_smoke
+
+    return chip_smoke.swapped_remap_problem(rng, b, nq, nr)
+
+
+def test_remap_plain_swapped_ties_pick_lower_twin(rng):
+    """On ties between refs at different places the plain version (the
+    kernel's yardstick on the card) keeps the lower twin for every query:
+    the twin's score equals the winner's, and the winner's coordinates are
+    the first copy's."""
+    q, r = _swapped_ties(rng, 2, 300, 600)
+    qt, rt = torch.from_numpy(q), torch.from_numpy(r)
+    best, idx = knn._nearest(qt, rt)
+    assert int(idx.max()) < 300
+    twin = torch.gather(knn._scores(qt, rt), 2, (idx + 300)[..., None])[..., 0]
+    assert torch.equal(twin, best)
+    c, s = _plain(q, r)
+    np.testing.assert_array_equal(
+        c, np.take_along_axis(r, to_np(idx)[..., None], axis=1))
+    np.testing.assert_array_equal(s, to_np(best))
+    assert (c[..., 0] != c[..., 1]).all()   # a wrong twin would show
+
+
+def test_remap_pallas_swapped_ties_pick_a_twin(rng):
+    """The JAX Pallas kernel rounds its scores otherwise (``dot_general``
+    and a summed ``rsq``), so a pinned exact tie is no tie there and it may
+    keep either twin: its coordinates are the plain winner's or its twin's
+    (x and y swapped), its scores within 1e-6 of the plain version's."""
+    q, r = _swapped_ties(rng, 2, 300, 600)
+    pc, ps = _plain(q, r)
+    jc, js = _pallas(q, r)
+    same = (jc == pc).all(-1)
+    twin = (jc == pc[..., [1, 0, 2]]).all(-1)
+    assert (same | twin).all()
+    np.testing.assert_allclose(js, ps, rtol=0, atol=1e-6)
+
+
+def test_remap_gated_ragged_past_one_tile_matches_pallas(rng):
+    """A gated row and R = 1100, past the kernel's 1024-ref tile and two of
+    the Pallas kernel's 512-ref tiles, with a ragged Q."""
+    q = rng.standard_normal((3, 37, 3)).astype(np.float32)
+    r = rng.standard_normal((3, 1100, 3)).astype(np.float32)
     active = np.array([1, 0, 1], np.int32)
     got_c, got_s = _plain(q, r, active)
     want_c, want_s = _pallas(q, r, active.astype(bool))
