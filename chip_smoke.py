@@ -61,6 +61,20 @@ fails. Phases, in order:
    at the up2 shape, the kernel's launches reset before and read after;
    4e. ``estimate_batch`` at B=64, K=2 under the dense zero-border and the
    align-corners decoders;
+   4f. the data path: a synthetic 21-class YCB root (32 real + 32
+   synthetic 480x640 frames) written to a temporary directory, read by
+   ``YCBDataset`` (N=1000, M=500, 192 px crops, noise on) through
+   ``BatchLoader`` at B=32 with 4 workers: the batch order of epoch 1 is
+   ``default_rng((seed, epoch)).shuffle``, thread and fork workers give
+   bit-identical batches, ``epoch(1, start_batch=1)`` is the epoch's tail;
+   then three phase-1 steps fed by ``PrefetchIterator`` and ``to_device``
+   from the fork workers (forked after CUDA is up; they run numpy only),
+   each step's launch counts reset before it and read after it (paired and
+   min kernels once, kernel 6 three times), finite losses, moved
+   parameters, the symmetric rows of each batch printed; then the paired
+   and min kernels against their plain versions on the last batch's
+   model and target points, gated by its symmetric rows, at the PoseNet's
+   own hypotheses;
 5. the same B=8 batch on the card and on the CPU, with TF32 off, must agree,
    under each of the three decoders;
    5b. one phase-1 and one phase-2 loss and gradient at B=4, dropout off,
@@ -75,6 +89,10 @@ fails. Phases, in order:
    for the redesigned kernels (1-5) time over bound and launches x (time -
    bound), for the paired kernel (1) at phase 1, the phase-2 main loss and
    the refiner, with the split each takes, and the remap's (5) split;
+   the data plane on the 4f root: the loader's cold, warm (threads) and
+   ring (fork workers) samples/s at B=32, and loader-fed phase-1 steps/s
+   beside the device-only rate and the input-bound fraction
+   (``cli/benchmark.py`` ``bench_loader`` / ``bench_train_e2e``);
 7. a JSON line listing every ported kernel (``kernels``), with its launch
    count on the path that ported it (``launches``) and on each path
    (``launches_by_path``);
@@ -85,9 +103,12 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import atexit
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -99,6 +120,9 @@ NUM_OBJ, NUM_POINTS, CROP, REFINE_ITERS = 21, 1000, 192, 2
 BATCH, NUM_MESH = 64, 500
 TRAIN_BATCH, REFINE_MESH, TRAIN_SYM_ROWS, LR, W = 32, 2600, 8, 1e-4, 0.015
 TRAIN_STEPS = 3   # per phase
+# the data path's synthetic YCB root: real and synthetic training frames,
+# and the loader's workers
+DATA_FRAMES, DATA_WORKERS, E2E_STEPS = 32, 4, 20
 # the KNN benchmark's shape (densefusion_tpu_torch/cli/benchmark.py)
 KNN_QUERIES, KNN_REFS = 250_000, 500
 SEED = 0
@@ -1009,6 +1033,165 @@ def train_path(add_dist, phase_conv, rng):
     return state, (b1, b2), totals, by_phase
 
 
+def data_path(add_dist, phase_conv, root: str) -> dict:
+    """Phase 4f: a synthetic 21-class YCB root on disk -> ``YCBDataset`` ->
+    ``BatchLoader`` (thread and fork workers) -> three phase-1 steps on the
+    card. Checks the batch order, the identity of the worker modes' and a
+    resumed epoch's batches, each step's launches (paired and min kernels
+    once, kernel 6 three times), finite losses and moved parameters, and
+    holds the paired and min kernels to their plain versions on a loader
+    batch gated by its real symmetric rows. Returns the launch totals and
+    what it measured on the way."""
+    from densefusion_tpu_torch.data import (
+        YCB_SYM, BatchLoader, PrefetchIterator, YCBDataset,
+        generate_ycb_style_dataset, to_device,
+    )
+    from densefusion_tpu_torch.geometry import quat_normalize, quat_to_matrix
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.train import (
+        create_train_state, make_pose_train_step,
+    )
+
+    t0 = time.perf_counter()
+    generate_ycb_style_dataset(root, n_classes=NUM_OBJ, n_real=DATA_FRAMES,
+                               n_syn=DATA_FRAMES, n_test=2, seed=SEED)
+    gen_s = time.perf_counter() - t0
+    ds = YCBDataset(root, "train", num_points=NUM_POINTS, crop_size=CROP)
+    if (len(ds), len(ds.classes), ds.num_mesh) != (2 * DATA_FRAMES, NUM_OBJ,
+                                                   NUM_MESH):
+        raise AssertionError(f"reader: {len(ds)} frames, {len(ds.classes)} "
+                             f"classes, M={ds.num_mesh}")
+    thread = BatchLoader(ds, TRAIN_BATCH, num_workers=DATA_WORKERS, seed=SEED)
+    proc = BatchLoader(ds, TRAIN_BATCH, num_workers=DATA_WORKERS, seed=SEED,
+                       worker_mode="process")
+    try:
+        order = np.arange(len(ds))
+        np.random.default_rng((SEED, 1)).shuffle(order)
+        got = np.concatenate(thread.batch_indices(1))
+        if not np.array_equal(got, order):
+            raise AssertionError(f"batch order of epoch 1 {got} is not "
+                                 f"default_rng((seed, 1)).shuffle {order}")
+        t0 = time.perf_counter()
+        tb = list(thread.epoch(1))
+        thread_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pb = list(proc.epoch(1))
+        proc_s = time.perf_counter() - t0
+        tail = list(proc.epoch(1, start_batch=1))
+        for label, xs, ys in (("fork workers", pb, tb),
+                              ("epoch(1, start_batch=1)", tail, tb[1:])):
+            if len(xs) != len(ys):
+                raise AssertionError(f"{label}: {len(xs)} batches, want "
+                                     f"{len(ys)}")
+            for x, y in zip(xs, ys):
+                for f, a, b in zip(x._fields, x, y):
+                    if a.dtype != b.dtype or not np.array_equal(a, b):
+                        raise AssertionError(f"{label}: field {f} differs "
+                                             "from the thread loader's")
+        for b in tb:
+            if (b.points.shape != (TRAIN_BATCH, NUM_POINTS, 3)
+                    or b.img.shape != (TRAIN_BATCH, CROP, CROP, 3)
+                    or b.model_points.shape != (TRAIN_BATCH, NUM_MESH, 3)
+                    or not (np.isfinite(b.points).all()
+                            and np.isfinite(b.img).all())
+                    or not np.array_equal(b.sym, np.isin(b.obj_idx, YCB_SYM))
+                    or not b.valid.any()):
+                raise AssertionError("a loader batch has the wrong shapes, "
+                                     "non-finite values, wrong sym flags or "
+                                     "no valid row")
+        log(f"[4f] synthetic YCB root ({NUM_OBJ} classes, {DATA_FRAMES} real "
+            f"+ {DATA_FRAMES} synthetic frames) written in {gen_s:.2f} s; "
+            f"epoch 1 in {len(tb)} batches of {TRAIN_BATCH}: thread "
+            f"{thread_s:.2f} s, fork workers {proc_s:.2f} s (pool start "
+            f"included), bit-identical; resume from batch 1 equal; order "
+            f"== default_rng(({SEED}, 1)).shuffle")
+
+        def batches():
+            """TRAIN_STEPS batches from the fork workers, epochs 2, 3, ..."""
+            n, epoch = 0, 2
+            while True:
+                for b in proc.epoch(epoch):
+                    yield b
+                    n += 1
+                    if n == TRAIN_STEPS:
+                        return
+                epoch += 1
+
+        kernels = {"add_dist_paired": add_dist.paired_kernel,
+                   "add_dist_min": add_dist.min_kernel,
+                   "phase_conv": phase_conv.phase_conv_kernel}
+        want = {"add_dist_paired": 1, "add_dist_min": 1, "phase_conv": 3}
+        totals = dict.fromkeys(kernels, 0)
+        state = create_train_state(PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ),
+                                   LR, SEED)
+        step = make_pose_train_step(state, use_adds=True)
+        losses, sym_rows, last = [], [], None
+        for i, b in enumerate(PrefetchIterator(batches(), depth=2)):
+            before = _snapshot(state.posenet)
+            last = to_device(b, "cuda")
+            for k in kernels.values():
+                k.launches = 0
+            metrics = step(last, W)
+            torch.cuda.synchronize()
+            got = {name: k.launches for name, k in kernels.items()}
+            if got != want:
+                raise AssertionError(f"data step {i}: launches {got}, "
+                                     f"expected {want}")
+            for name, n in got.items():
+                totals[name] += n
+            loss = float(metrics["loss"])
+            if not (np.isfinite(loss) and np.isfinite(float(metrics["dis"]))
+                    and _finite_grads(state.posenet)):
+                raise AssertionError(f"data step {i}: non-finite loss {loss} "
+                                     "or gradients")
+            if not _moved(state.posenet, before):
+                raise AssertionError(f"data step {i}: no parameter moved")
+            losses.append(loss)
+            sym_rows.append(int((b.sym & b.valid).sum()))
+            log(f"[4f] data step {i}: loss {loss:.6f}, {int(b.valid.sum())} "
+                f"valid rows, {sym_rows[-1]} symmetric (the min kernel's "
+                f"active rows), launches {got}")
+        if len(losses) != TRAIN_STEPS or not any(sym_rows):
+            raise AssertionError(f"data path: {len(losses)} steps, symmetric "
+                                 f"rows {sym_rows}")
+
+        # both distance kernels against their plain versions on the last
+        # batch (its model and target points, gated by its symmetric rows)
+        # at the PoseNet's own hypotheses; these launches are not counted
+        with torch.no_grad():
+            state.posenet.eval()
+            out = state.posenet(last.img, last.points, last.choose,
+                                last.obj_idx)
+        args = (quat_to_matrix(quat_normalize(out["pred_r"])).contiguous(),
+                (last.points + out["pred_t"]).contiguous(),
+                last.model_points.contiguous(), last.target.contiguous())
+        sym_i = last.sym.to(torch.int32)
+        max_err = {}
+        for name, kernel, plain, act in (
+                ("add_dist_paired", add_dist.paired_kernel,
+                 add_dist.paired_plain, 1 - sym_i),
+                ("add_dist_min", add_dist.min_kernel, add_dist.min_plain,
+                 sym_i)):
+            kd, kc = kernel(*args, act)
+            pd, pc = plain(*args, act)
+            torch.cuda.synchronize()
+            if not torch.allclose(kd, pd, rtol=1e-5, atol=0.0):
+                raise AssertionError(f"{name}: dis differs on a loader "
+                                     f"batch: {float((kd - pd).abs().max())}")
+            cerr = float((kc - pc).abs().max())
+            if cerr > 2e-5:
+                raise AssertionError(f"{name}: coefficients differ on a "
+                                     f"loader batch: {cerr}")
+            max_err[name] = max(float((kd - pd).abs().max()), cerr)
+        log(f"[4f] paired / min kernel == plain on the last loader batch "
+            f"({int(sym_i.sum())} symmetric rows, PoseNet hypotheses): max "
+            f"abs err {max_err}")
+    finally:
+        proc.close()
+    return {"launches": totals, "losses": losses, "sym_rows": sym_rows,
+            "max_err": max_err, "generate_s": gen_s}
+
+
 def train_cpu_agreement(states, rng) -> dict:
     """Phase 5b: one phase-1 loss and gradient (PoseNet in eval mode, so
     dropout off; ADD-S on one row) and one phase-2 step
@@ -1315,6 +1498,14 @@ def run() -> None:
     # 4e. serving under the dense and the align-corners decoders
     other_ests = other_decoders(states, samples)
 
+    # 4f. data path: a YCB root on disk -> loader -> phase-1 steps (its own
+    # launch counts, reset per step)
+    data_root = tempfile.mkdtemp(prefix="chip_smoke_ycb_")
+    atexit.register(shutil.rmtree, data_root, True)
+    data = data_path(add_dist, phase_conv, data_root)
+    path_launches["data"] = data["launches"]
+    log(f"[4f] data path: launches over all steps {data['launches']}")
+
     # 5. card vs CPU, TF32 off
     est_cpu = seeded_estimator(None, states, device="cpu")[0]
     agree = cpu_agreement(est, est_cpu, samples)
@@ -1396,6 +1587,28 @@ def run() -> None:
         f"phase-2 step B={TRAIN_BATCH} M={REFINE_MESH} K={REFINE_ITERS}: "
         f"{p2_ms:.3f} ms = {TRAIN_BATCH * 1e3 / p2_ms:.1f} samples/s; "
         f"card {card}")
+
+    # the data plane on the 4f root: the loader alone, then loader-fed
+    # phase-1 steps against the same step on one batch
+    from densefusion_tpu_torch.cli.benchmark import (
+        bench_loader, bench_train_e2e,
+    )
+    loader_rates = bench_loader(workers=DATA_WORKERS, batch=TRAIN_BATCH,
+                                dataset_root=data_root)
+    e2e = bench_train_e2e(batch=TRAIN_BATCH, steps=E2E_STEPS,
+                          workers=DATA_WORKERS, dataset_root=data_root)
+    log(f"[6] loader on the {NUM_OBJ}-class YCB root, B={TRAIN_BATCH}, "
+        f"{DATA_WORKERS} workers (host only): cold "
+        f"{loader_rates['loader_cold_samples_per_s']:.1f}, warm (threads) "
+        f"{loader_rates['loader_warm_samples_per_s']:.1f}, ring (fork "
+        f"workers) {loader_rates.get('loader_ring_samples_per_s', 0):.1f} "
+        f"samples/s; cache hit rate "
+        f"{loader_rates['loader_cache_hit_rate']:.3f}; card {card}")
+    log(f"[6] train_e2e B={TRAIN_BATCH} M={NUM_MESH} f32, {E2E_STEPS} "
+        f"loader-fed steps: {e2e['train_e2e_steps_per_s']:.3f} steps/s "
+        f"({e2e['train_e2e_frames_per_s']:.1f} frames/s), device-only "
+        f"{e2e['train_device_only_steps_per_s']:.3f} steps/s, input-bound "
+        f"fraction {e2e['train_e2e_input_bound_fraction']:.4f}; card {card}")
 
     # the distance kernels at the phase-1 shape (8 of 32 rows symmetric),
     # and each at the phase-2 shapes for the record
@@ -1679,6 +1892,9 @@ def run() -> None:
                "train_phase1_step_ms_b32": p1_ms,
                "train_phase1_samples_per_s_b32": TRAIN_BATCH * 1e3 / p1_ms,
                "train_phase2_step_ms_b32_m2600": p2_ms,
+               "data_path": {k: data[k] for k in ("losses", "sym_rows",
+                                                  "max_err", "generate_s")},
+               "loader": loader_rates, "train_e2e": e2e,
                "bench_knn": search["bench"],
                "frames_per_s_b64_other_decoders": decoder_fps,
                "decoder_path_rel_errors": decoder["rel_errors"],

@@ -1,21 +1,33 @@
-"""Benchmark CLI: the 1-NN search at the training ADD-S query count.
+"""Benchmark CLI: the 1-NN search at the training ADD-S query count, the
+host data plane, and loader-fed training.
 
-Counterpart of ``densefusion_tpu/cli/benchmark.py`` (``bench_knn``, same
-shape, same seed, same keys). Runs on the card unless given
-``--device cpu``::
+Counterpart of ``densefusion_tpu/cli/benchmark.py`` (``bench_knn``,
+``bench_loader`` and ``bench_train_e2e``: same shapes, seeds and keys).
+Runs on the card unless given ``--device cpu``::
 
     python -m densefusion_tpu_torch.cli.benchmark --what knn
+    python -m densefusion_tpu_torch.cli.benchmark --what loader
+    python -m densefusion_tpu_torch.cli.benchmark --what train_e2e
 
-Prints one JSON object: ``knn_backend`` (``cuda``: the kernel of
-``csrc/nn.cu``; ``plain``: its plain PyTorch version on the CPU),
-``knn_us`` per search (host clock, each search ended by a sync),
-``knn_pairs_per_s`` and the device it ran on.
+Each prints one JSON object with the device it ran on.
+
+* ``knn``: ``knn_backend`` (``cuda``: the kernel of ``csrc/nn.cu``;
+  ``plain``: its plain PyTorch version on the CPU), ``knn_us`` per search
+  (host clock, each search ended by a sync), ``knn_pairs_per_s``.
+* ``loader``: samples/s of the YCB training reader through ``BatchLoader``
+  on a synthetic root (5 classes, 32 real + 32 synthetic 480x640 frames,
+  N=1000, 192 px crops): cold (PNG decode), warm (decoded-frame cache,
+  thread workers) and ring (fork workers and the shared-memory ring).
+* ``train_e2e``: phase-1 steps/s with the process loader feeding the step
+  through ``PrefetchIterator``, the device-only rate on one batch, and the
+  input-bound fraction ``1 - e2e / device``; float32.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 import time
 
 import numpy as np
@@ -56,16 +68,187 @@ def bench_knn(repeats: int = 50, device: str | torch.device | None = None,
                        else "cpu")}
 
 
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _ycb_root(dataset_root: str | None, prefix: str) -> str:
+    """``dataset_root``, or a synthetic YCB root generated into a fresh
+    temporary directory (5 classes, 32 real + 32 synthetic frames)."""
+    if dataset_root is not None:
+        return dataset_root
+    from densefusion_tpu_torch.data import generate_ycb_style_dataset
+
+    root = tempfile.mkdtemp(prefix=prefix)
+    generate_ycb_style_dataset(root, n_classes=5, n_real=32, n_syn=32,
+                               n_test=2, seed=0)
+    return root
+
+
+def bench_loader(workers: int = 4, batch: int = 16,
+                 dataset_root: str | None = None, epochs: int = 3,
+                 num_points: int = 1000, crop_size: int = 192,
+                 device: str | torch.device | None = None) -> dict:
+    """Host data-plane throughput of the YCB training reader: cold (PNG
+    decode) and warm (decoded-frame cache) samples/s with a thread loader,
+    then with fork workers and the shared-memory ring; the check of whether
+    the loader keeps up with the train step."""
+    from densefusion_tpu_torch.data import BatchLoader, YCBDataset
+
+    dev = resolve_device(device)
+    ds = YCBDataset(_ycb_root(dataset_root, "ycb_loaderbench_"), mode="train",
+                    num_points=num_points, crop_size=crop_size,
+                    cache_frames=8192)
+    loader = BatchLoader(ds, batch, shuffle=True, num_workers=workers,
+                         drop_last=False)
+
+    t0 = time.perf_counter()
+    n_cold = sum(b.valid.size for b in loader.epoch(0))
+    cold = n_cold / (time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    n_warm = 0
+    for ep in range(1, 1 + epochs):
+        n_warm += sum(b.valid.size for b in loader.epoch(ep))
+    warm = n_warm / (time.perf_counter() - t0)
+    out = {"loader_workers": workers,
+           "loader_cold_samples_per_s": cold,
+           "loader_warm_samples_per_s": warm,
+           "loader_cache_hit_rate": ds.cache.hits /
+           max(ds.cache.hits + ds.cache.misses, 1)}
+
+    # fork workers + shared-memory ring; the parent's cache is warm at the
+    # fork, so the workers inherit the decoded frames
+    ring = BatchLoader(ds, batch, shuffle=True, num_workers=workers,
+                       drop_last=False, worker_mode="process")
+    if ring.worker_mode == "process":   # linux only
+        try:
+            sum(1 for _ in ring.epoch(0))   # start and settle the pool
+            t0 = time.perf_counter()
+            n_ring = 0
+            for ep in range(1, 1 + epochs):
+                n_ring += sum(b.valid.size for b in ring.epoch(ep))
+            out["loader_ring_samples_per_s"] = \
+                n_ring / (time.perf_counter() - t0)
+        finally:
+            ring.close()
+    out["device"] = _device_name(dev)
+    return out
+
+
+def bench_train_e2e(batch: int = 16, steps: int = 60, workers: int = 4,
+                    dataset_root: str | None = None, num_points: int = 1000,
+                    crop_size: int = 192, device_steps: int = 10,
+                    device: str | torch.device | None = None) -> dict:
+    """Phase-1 training throughput with the process loader feeding the step
+    (synthetic YCB, full augmentation): achieved steps/s, the device-only
+    rate on one batch, and the input-bound fraction (0 when the host keeps
+    up). Float32: the JAX benchmark's bfloat16 is not ported yet."""
+    from densefusion_tpu_torch.data import (
+        BatchLoader, PrefetchIterator, YCBDataset, to_device,
+    )
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.train import (
+        create_train_state, make_pose_train_step,
+    )
+    from densefusion_tpu_torch.utils.config import RunConfig, check_ported
+
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    ds = YCBDataset(_ycb_root(dataset_root, "ycb_e2ebench_"), mode="train",
+                    num_points=num_points, crop_size=crop_size,
+                    cache_frames=8192)
+    for i in range(len(ds)):   # warm the frame cache BEFORE the pool forks
+        ds[i]
+    loader = BatchLoader(ds, batch, shuffle=True, num_workers=workers,
+                         drop_last=True, worker_mode="process")
+    cfg = RunConfig.preset("ycb", num_points=num_points, crop_size=crop_size)
+    check_ported(cfg)
+    num_obj = len(ds.classes)
+    state = create_train_state(PoseNet(num_obj), PoseRefineNet(num_obj),
+                               cfg.lr, cfg.seed, dev)
+    step = make_pose_train_step(state, use_adds=True)
+    try:
+        it = loader.epoch(0)
+        first = to_device(next(it), dev)
+        it.close()   # drains the ring before the next epoch starts
+        m = step(first, cfg.w)   # warm-up
+        sync()
+
+        # device-only rate (the same batch on the device, no host loader)
+        t0 = time.perf_counter()
+        for _ in range(device_steps):
+            m = step(first, cfg.w)
+        sync()
+        dev_rate = device_steps / (time.perf_counter() - t0)
+
+        # end to end: the prefetched loader feeding the step
+        done, epoch = 0, 1
+        t0 = time.perf_counter()
+        while done < steps:
+            for b in PrefetchIterator(loader.epoch(epoch), depth=3):
+                m = step(to_device(b, dev), cfg.w)
+                done += 1
+                if done >= steps:
+                    break
+            epoch += 1
+        sync()
+        e2e_rate = steps / (time.perf_counter() - t0)
+    finally:
+        loader.close()
+    if not torch.isfinite(m["loss"]):
+        raise RuntimeError(f"non-finite training loss {float(m['loss'])}")
+    return {
+        "train_e2e_batch": batch,
+        "train_e2e_steps_per_s": e2e_rate,
+        "train_e2e_frames_per_s": e2e_rate * batch,
+        "train_device_only_steps_per_s": dev_rate,
+        "train_e2e_input_bound_fraction": max(0.0, 1.0 - e2e_rate / dev_rate),
+        "dtype": "float32",
+        "device": _device_name(dev),
+    }
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--what", default="knn", choices=["knn"])
+    p.add_argument("--what", default="knn",
+                   choices=["knn", "loader", "train_e2e"])
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     p.add_argument("--queries", type=int, default=NUM_QUERY,
-                   help="query count (a smaller one for a CPU run)")
+                   help="knn: query count (a smaller one for a CPU run)")
+    p.add_argument("--workers", type=int, default=4)
+    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--dataset_root", default=None,
+                   help="loader / train_e2e: an existing YCB-format root "
+                        "(default: generate a synthetic one)")
+    p.add_argument("--steps", type=int, default=60,
+                   help="train_e2e: loader-fed steps")
+    p.add_argument("--device_steps", type=int, default=10,
+                   help="train_e2e: steps on one batch for the device-only "
+                        "rate")
+    p.add_argument("--num_points", type=int, default=1000,
+                   help="loader / train_e2e: cloud points per sample")
+    p.add_argument("--crop_size", type=int, default=192,
+                   help="loader / train_e2e: crop size (smaller for a CPU "
+                        "run)")
     args = p.parse_args(argv)
-    results = bench_knn(device=args.device, num_query=args.queries)
+    data_kw = dict(workers=args.workers, batch=args.batch,
+                   dataset_root=args.dataset_root,
+                   num_points=args.num_points, crop_size=args.crop_size,
+                   device=args.device)
+    if args.what == "knn":
+        results = bench_knn(device=args.device, num_query=args.queries)
+    elif args.what == "loader":
+        results = bench_loader(**data_kw)
+    else:
+        results = bench_train_e2e(steps=args.steps,
+                                  device_steps=args.device_steps, **data_kw)
     print(json.dumps(results, indent=2))
     return results
 

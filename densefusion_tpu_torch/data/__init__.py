@@ -1,11 +1,47 @@
-"""Host-side sample schema and assembly (numpy)."""
+"""Data plane (host-side numpy): the sample schema and its assembly, the
+LineMOD and YCB-Video readers, augmentation, the synthetic scene
+generators, and the batch loader. Batches go to the card through
+:func:`to_device`.
+
+The sample schema is the reference's six-tensor contract plus ``sym`` /
+``valid`` flags::
+
+    points (N, 3) f32 meters | choose (N,) i32 | img (H, W, 3) f32 normalized
+    target (M, 3) f32 | model_points (M, 3) f32 | obj_idx () i32
+    sym () bool | valid () bool
+
+Every crop is resized to one canonical size with ``choose`` remapped to it,
+so every sample of a dataset has the same shapes.
+"""
 
 from densefusion_tpu_torch.data.schema import (
-    PoseSample, collate, normalize_image, to_device,
+    PoseSample, collate, normalize_image, to_device, IMAGENET_MEAN,
+    IMAGENET_STD,
 )
+from densefusion_tpu_torch.data.augment import resize_bilinear_np
 from densefusion_tpu_torch.data.common import (
-    assemble_sample, choose_mask_pixels, resize_bilinear_np,
+    assemble_sample, choose_mask_pixels, pinhole_point_fn,
+    subsample_model_points,
+)
+from densefusion_tpu_torch.data.ply import read_ply_vertices, write_ply
+from densefusion_tpu_torch.data.linemod import (
+    LineModDataset, LINEMOD_OBJLIST, LINEMOD_SYM,
+)
+from densefusion_tpu_torch.data.ycb import (
+    YCBDataset, YCBPoseCNNEvalDataset, YCB_SYM,
+)
+from densefusion_tpu_torch.data.loader import BatchLoader, PrefetchIterator
+from densefusion_tpu_torch.data.synthetic import (
+    generate_linemod_style_dataset, generate_ycb_style_dataset,
 )
 
-__all__ = ["PoseSample", "collate", "normalize_image", "to_device",
-           "assemble_sample", "choose_mask_pixels", "resize_bilinear_np"]
+__all__ = [
+    "PoseSample", "collate", "normalize_image", "to_device",
+    "IMAGENET_MEAN", "IMAGENET_STD", "resize_bilinear_np",
+    "assemble_sample", "choose_mask_pixels", "pinhole_point_fn",
+    "subsample_model_points", "read_ply_vertices", "write_ply",
+    "LineModDataset", "LINEMOD_OBJLIST", "LINEMOD_SYM",
+    "YCBDataset", "YCBPoseCNNEvalDataset", "YCB_SYM",
+    "BatchLoader", "PrefetchIterator",
+    "generate_linemod_style_dataset", "generate_ycb_style_dataset",
+]

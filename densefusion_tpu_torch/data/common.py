@@ -1,5 +1,6 @@
-"""Object-crop sample assembly (host-side numpy; counterpart of
-``densefusion_tpu/data/common.py`` on its numpy path).
+"""Object-crop sample assembly shared by the dataset readers and serving
+(host-side numpy; counterpart of ``densefusion_tpu/data/common.py`` on its
+numpy path).
 
 mask -> bbox ladder -> choose sampling -> depth back-projection -> crop
 normalization, with the crop resized to one canonical size and ``choose``
@@ -16,28 +17,21 @@ from densefusion_tpu_torch.geometry.bbox import (
     snap_bbox, remap_choose_to_resized,
 )
 from densefusion_tpu_torch.data.schema import PoseSample, normalize_image
+from densefusion_tpu_torch.data.augment import resize_bilinear_np
 
 
-def resize_bilinear_np(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """Bilinear resize of an (H, W, C) image, half-pixel convention."""
-    img = np.asarray(img, np.float32)
-    h, w = img.shape[:2]
-    if (h, w) == (out_h, out_w):
-        return img
-    ys = np.clip((np.arange(out_h) + 0.5) * h / out_h - 0.5, 0, h - 1)
-    xs = np.clip((np.arange(out_w) + 0.5) * w / out_w - 0.5, 0, w - 1)
-    y0 = np.floor(ys).astype(np.int32)
-    x0 = np.floor(xs).astype(np.int32)
-    y1 = np.minimum(y0 + 1, h - 1)
-    x1 = np.minimum(x0 + 1, w - 1)
-    wy = (ys - y0)[:, None, None]
-    wx = (xs - x0)[None, :, None]
-    a = img[y0][:, x0]
-    b = img[y0][:, x1]
-    c = img[y1][:, x0]
-    d = img[y1][:, x1]
-    return (a * (1 - wy) * (1 - wx) + b * (1 - wy) * wx
-            + c * wy * (1 - wx) + d * wy * wx)
+def pinhole_point_fn(depth: np.ndarray, cam, depth_scale: float,
+                     unit_scale: float = 1.0):
+    """Returns ``point_fn(rows, cols) -> (n, 3)`` back-projecting those
+    pixels of ``depth``. ``cam`` needs fx/fy/cx/cy attributes;
+    ``depth_scale`` converts raw depth units, ``unit_scale`` converts to
+    meters."""
+    def point_fn(rows, cols):
+        z = depth[rows, cols].astype(np.float32) / depth_scale
+        x3 = (cols.astype(np.float32) - cam.cx) * z / cam.fx
+        y3 = (rows.astype(np.float32) - cam.cy) * z / cam.fy
+        return np.stack([x3, y3, z], -1) * unit_scale
+    return point_fn
 
 
 def choose_mask_pixels(mask_crop: np.ndarray, num_points: int,
@@ -58,25 +52,42 @@ def choose_mask_pixels(mask_crop: np.ndarray, num_points: int,
 
 def assemble_sample(
     *,
-    rgb: np.ndarray,                  # (H, W, 3) full frame
-    mask: np.ndarray,                 # (H, W) bool valid-object pixels
+    rgb: np.ndarray | None = None,   # (H, W, 3) full frame
+    mask: np.ndarray | None = None,  # (H, W) bool valid-object pixels
     bbox: tuple[int, int, int, int],  # tight (rmin, rmax, cmin, cmax)
     point_fn: Callable[[np.ndarray, np.ndarray], np.ndarray],
-    model_points: np.ndarray,         # (M, 3) canonical, meters
-    target: np.ndarray,               # (M, 3) gt-posed, meters
+    model_points: np.ndarray,        # (M, 3) canonical, meters
+    target: np.ndarray,              # (M, 3) gt-posed, meters
     obj_idx: int,
     sym: bool,
     num_points: int,
     crop_size: int,
     rng: np.random.Generator,
+    add_t: np.ndarray | None = None,  # (3,) translation noise, meters
+    rgb_transform=None,               # applied to the crop (e.g. jitter)
+    crop_fn=None,                     # (rmin, rmax, cmin, cmax) -> crop rgb
+    mask_fn=None,                     # (rmin, rmax, cmin, cmax) -> bool window
+    frame_hw: tuple[int, int] | None = None,  # (H, W), required with mask_fn
+    native_crop: bool = False,        # keep the snapped crop's own shape
 ) -> PoseSample:
     """Build one PoseSample. ``point_fn(rows, cols) -> (n, 3)`` back-projects
-    absolute pixel coordinates to metric 3D."""
-    h, w = mask.shape
+    absolute pixel coordinates to metric 3D.
+
+    ``rgb_transform`` runs on the snapped crop only. ``crop_fn`` produces
+    the finished crop for the snapped window instead of slicing ``rgb``
+    (compositing, noise and jitter restricted to the pixels used). ``mask_fn``
+    likewise produces just the snapped window of the mask instead of a
+    full-frame ``mask``. ``native_crop=True`` keeps the snapped crop's shape
+    with ``choose`` in its coordinates (the reference's exact input
+    geometry; such samples batch only with crops of the same shape).
+    """
+    h, w = frame_hw if mask is None else mask.shape
     rmin, rmax, cmin, cmax = snap_bbox(*bbox, img_h=h, img_w=w)
     crop_h, crop_w = rmax - rmin, cmax - cmin
 
-    choose = choose_mask_pixels(mask[rmin:rmax, cmin:cmax], num_points, rng)
+    mask_win = (mask[rmin:rmax, cmin:cmax] if mask is not None
+                else mask_fn(rmin, rmax, cmin, cmax))
+    choose = choose_mask_pixels(mask_win, num_points, rng)
     if choose is None:
         return PoseSample.invalid(num_points, model_points.shape[0], crop_size)
 
@@ -84,8 +95,20 @@ def assemble_sample(
     cols = cmin + choose % crop_w
     cloud = point_fn(rows, cols).astype(np.float32)
 
-    img = normalize_image(rgb[rmin:rmax, cmin:cmax])
-    if (crop_h, crop_w) != (crop_size, crop_size):
+    tgt = np.asarray(target, np.float32)
+    if add_t is not None:
+        cloud = cloud + add_t
+        tgt = tgt + add_t
+
+    if crop_fn is not None:
+        crop_rgb = crop_fn(rmin, rmax, cmin, cmax)
+    else:
+        crop_rgb = rgb[rmin:rmax, cmin:cmax]
+    if rgb_transform is not None:
+        crop_rgb = rgb_transform(crop_rgb)
+    img = normalize_image(crop_rgb)
+    choose = (rows - rmin) * crop_w + (cols - cmin)
+    if not native_crop and (crop_h, crop_w) != (crop_size, crop_size):
         img = resize_bilinear_np(img, crop_size, crop_size)
         choose = remap_choose_to_resized(choose, crop_h, crop_w,
                                          crop_size, crop_size)
@@ -94,9 +117,19 @@ def assemble_sample(
         points=cloud,
         choose=choose.astype(np.int32),
         img=img.astype(np.float32),
-        target=np.asarray(target, np.float32),
+        target=tgt,
         model_points=np.asarray(model_points, np.float32),
         obj_idx=np.asarray(obj_idx, np.int32),
         sym=np.asarray(sym, bool),
         valid=np.ones((), bool),
     )
+
+
+def subsample_model_points(points: np.ndarray, num: int,
+                           rng: np.random.Generator) -> np.ndarray:
+    """Random subset of ``num`` model points (tiled when there are fewer)."""
+    if len(points) <= num:
+        reps = -(-num // len(points))
+        return np.tile(points, (reps, 1))[:num]
+    idx = rng.choice(len(points), size=num, replace=False)
+    return points[idx]

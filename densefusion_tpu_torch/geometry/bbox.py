@@ -50,17 +50,20 @@ def snap_bbox(rmin: int, rmax: int, cmin: int, cmax: int,
     return max(rmin, 0), rmax, max(cmin, 0), cmax
 
 
-def bbox_from_mask(mask: np.ndarray):
-    """Tight bbox (rmin, rmax, cmin, cmax) of the largest connected region of
-    a binary mask (guards against speckle in predicted masks); None for an
-    empty mask."""
+def bbox_from_mask(mask: np.ndarray, largest_component: bool = True):
+    """Tight bbox (rmin, rmax, cmin, cmax) of a binary mask; None for an
+    empty mask. With ``largest_component=True`` only the largest connected
+    region counts (guards against speckle in predicted masks); with False
+    the box spans every True pixel (a ground-truth label whose object an
+    occluder splits into islands)."""
     mask = np.asarray(mask).astype(bool)
     if not mask.any():
         return None
-    labels, n = ndimage.label(mask)
-    if n > 1:
-        sizes = ndimage.sum(mask, labels, index=np.arange(1, n + 1))
-        mask = labels == (1 + int(np.argmax(sizes)))
+    if largest_component:
+        labels, n = ndimage.label(mask)
+        if n > 1:
+            sizes = ndimage.sum(mask, labels, index=np.arange(1, n + 1))
+            mask = labels == (1 + int(np.argmax(sizes)))
     rows = np.any(mask, axis=1)
     cols = np.any(mask, axis=0)
     rmin, rmax = np.where(rows)[0][[0, -1]]

@@ -90,6 +90,44 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + w * t + torch.linalg.cross(qv, t)
 
 
+def quat_from_euler(ai, aj, ak) -> torch.Tensor:
+    """'sxyz' Euler angles -> quaternion(s) wxyz."""
+    ai, aj, ak = (torch.as_tensor(a, dtype=torch.float32) / 2.0
+                  for a in (ai, aj, ak))
+    ci, si = torch.cos(ai), torch.sin(ai)
+    cj, sj = torch.cos(aj), torch.sin(aj)
+    ck, sk = torch.cos(ak), torch.sin(ak)
+    return torch.stack(
+        [
+            ci * cj * ck + si * sj * sk,
+            si * cj * ck - ci * sj * sk,
+            ci * sj * ck + si * cj * sk,
+            ci * cj * sk - si * sj * ck,
+        ],
+        dim=-1,
+    )
+
+
+def euler_matrix(ai, aj, ak) -> torch.Tensor:
+    """'sxyz' Euler angles -> 3x3 rotation(s)."""
+    return quat_to_matrix(quat_from_euler(ai, aj, ak))
+
+
+def random_quaternion(generator: torch.Generator | None = None,
+                      shape=()) -> torch.Tensor:
+    """Uniform random unit quaternion(s) wxyz of ``shape``, drawn from
+    ``generator`` (on its device)."""
+    device = generator.device if generator is not None else None
+    u1, u2, u3 = torch.rand((3, *shape), generator=generator, device=device)
+    u2, u3 = u2 * (2.0 * torch.pi), u3 * (2.0 * torch.pi)
+    a, b = torch.sqrt(1.0 - u1), torch.sqrt(u1)
+    return torch.stack(
+        [b * torch.cos(u3), a * torch.sin(u2), a * torch.cos(u2),
+         b * torch.sin(u3)],
+        dim=-1,
+    )
+
+
 def pose_compose(q1, t1, q2, t2):
     """(q1,t1) o (q2,t2): p -> R1 (R2 p + t2) + t1 (the refinement
     composition ``T <- T @ T2``)."""

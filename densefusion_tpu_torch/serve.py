@@ -19,7 +19,9 @@ from typing import Sequence
 
 import numpy as np
 
-from densefusion_tpu_torch.data.common import assemble_sample
+from densefusion_tpu_torch.data.common import (
+    assemble_sample, pinhole_point_fn,
+)
 from densefusion_tpu_torch.data.schema import PoseSample, collate
 from densefusion_tpu_torch.eval.pipeline import InferencePipeline
 from densefusion_tpu_torch.geometry.bbox import bbox_from_mask
@@ -60,14 +62,8 @@ class PoseEstimator:
             bbox = bbox_from_mask(mask)
             if bbox is None:
                 return PoseSample.invalid(self.num_points, 8, self.crop_size)
-        cam = intrinsics
-
-        def point_fn(rows, cols):
-            z = depth[rows, cols].astype(np.float32) / cam.depth_scale
-            x3 = (cols.astype(np.float32) - cam.cx) * z / cam.fx
-            y3 = (rows.astype(np.float32) - cam.cy) * z / cam.fy
-            return np.stack([x3, y3, z], -1) * unit_scale
-
+        point_fn = pinhole_point_fn(depth, intrinsics,
+                                    intrinsics.depth_scale, unit_scale)
         placeholder = np.zeros((8, 3), np.float32)
         return assemble_sample(
             rgb=np.asarray(rgb)[..., :3], mask=mask, bbox=bbox,

@@ -318,3 +318,46 @@ def test_bench_knn_cli_on_cpu(capsys):
     assert out["knn_pairs_per_s"] == pytest.approx(
         2000 * benchmark.NUM_REF / (out["knn_us"] * 1e-6))
     assert json.loads(capsys.readouterr().out) == out
+
+
+@pytest.fixture(scope="module")
+def tiny_ycb_root(tmp_path_factory):
+    from densefusion_tpu_torch.data import generate_ycb_style_dataset
+
+    root = str(tmp_path_factory.mktemp("ycb_bench"))
+    generate_ycb_style_dataset(root, n_classes=3, n_real=3, n_syn=3,
+                               n_test=1, seed=2)
+    return root
+
+
+@pytest.mark.parametrize("what", ["loader", "train_e2e"])
+def test_bench_data_cli_on_cpu(capsys, tiny_ycb_root, what):
+    """``--what loader`` / ``train_e2e`` with ``--device cpu`` on a tiny
+    synthetic YCB root: the JAX ``bench_loader`` / ``bench_train_e2e``
+    keys (plus the device, and float32 for training), positive rates, one
+    JSON object printed."""
+    import json
+
+    args = ["--what", what, "--device", "cpu", "--dataset_root",
+            tiny_ycb_root, "--batch", "2", "--workers", "2",
+            "--num_points", "64", "--crop_size", "32"]
+    if what == "train_e2e":
+        args += ["--steps", "2", "--device_steps", "1"]
+    out = benchmark.main(args)
+    keys = ({"loader_workers", "loader_cold_samples_per_s",
+             "loader_warm_samples_per_s", "loader_cache_hit_rate",
+             "loader_ring_samples_per_s"} if what == "loader" else
+            {"train_e2e_batch", "train_e2e_steps_per_s",
+             "train_e2e_frames_per_s", "train_device_only_steps_per_s",
+             "train_e2e_input_bound_fraction", "dtype"})
+    assert set(out) == keys | {"device"} and out["device"] == "cpu"
+    assert all(out[k] > 0 for k in keys
+               if k.endswith("_per_s") or k == "loader_workers")
+    if what == "loader":
+        assert 0 < out["loader_cache_hit_rate"] <= 1
+    else:
+        assert out["dtype"] == "float32" and out["train_e2e_batch"] == 2
+        assert 0 <= out["train_e2e_input_bound_fraction"] < 1
+        assert out["train_e2e_frames_per_s"] == pytest.approx(
+            2 * out["train_e2e_steps_per_s"])
+    assert json.loads(capsys.readouterr().out) == out

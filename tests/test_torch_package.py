@@ -177,3 +177,16 @@ def test_build_digest_covers_headers(tmp_path, monkeypatch):
     assert build.library_path("k") not in (first, second)
     (tmp_path / "k.cu").write_text('#include "scan.cuh"\n// edited\n')
     assert build.library_path("k") not in (first, second)
+
+
+def test_data_benchmarks_need_cuda_or_cpu():
+    """Without a card, the loader and loader-fed training benchmarks raise
+    before they generate or read any data, unless given ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from densefusion_tpu_torch.cli.benchmark import (
+        bench_loader, bench_train_e2e,
+    )
+    for call in (bench_loader, bench_train_e2e):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(dataset_root="/nonexistent")
