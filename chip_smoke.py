@@ -75,10 +75,33 @@ fails. Phases, in order:
    and min kernels against their plain versions on the last batch's
    model and target points, gated by its symmetric rows, at the PoseNet's
    own hypotheses;
+   4g. the training CLI (``cli.train.main``) at the YCB width on the 4f
+   root (21 objects, N=1000, 192 px, mesh 500 then 2600, K=2, B=16, 4
+   steps per epoch): two epochs with the decay and refine margins above
+   any distance, so both gates fire after epoch 1 and epoch 2 trains the
+   refiner on data rebuilt at 2600 mesh points; each train and test
+   epoch's launches of kernels 1, 2 and 6 reset before it and read after
+   it (every kernel launched, kernel 6 three times per step); a fresh
+   ``Trainer`` resumes from ``checkpoint_current`` with parameters, Adam
+   moments and steps, the step, the dropout generator, the JAX key,
+   curriculum and cursor equal bit for bit; the file read back with the
+   port's codec holds the flax layout; checkpoint load and save timed;
+   ``PoseEstimator.from_checkpoint(checkpoint_best_refine)`` on the B=64
+   serving samples equal bit for bit to an estimator built from the
+   trainer's state_dicts; then epoch 3 trains in the fresh trainer;
+   seconds, steps/s and the input-bound fraction (time waiting on the
+   loader over the epoch) per epoch;
+   4h. LineMOD: a synthetic root of ape, eggbox and glue, one epoch of the
+   training CLI at the LineMOD width (N=500, 192 px), then
+   ``cli.eval_linemod`` on its checkpoint with native crops off and on:
+   ``result.json`` with rates in [0, 1], the launches of kernels 5 and 6
+   in each evaluation;
 5. the same B=8 batch on the card and on the CPU, with TF32 off, must agree,
    under each of the three decoders;
    5b. one phase-1 and one phase-2 loss and gradient at B=4, dropout off,
    on the same weights on the card and on the CPU, must agree;
+   5c. the phase-1 gradient at B=4 on 4g's trained weights, card against
+   CPU and each against a float64 reference: a reading, not a gate;
 6. timings: pose frames/s at B=64 under each decoder, the phase-1 and
    phase-2 step times at B=32, and each kernel's, its plain version's and
    the build's time (for the 1-NN kernels also ``torch.cdist(q, r)
@@ -92,7 +115,10 @@ fails. Phases, in order:
    the data plane on the 4f root: the loader's cold, warm (threads) and
    ring (fork workers) samples/s at B=32, and loader-fed phase-1 steps/s
    beside the device-only rate and the input-bound fraction
-   (``cli/benchmark.py`` ``bench_loader`` / ``bench_train_e2e``);
+   (``cli/benchmark.py`` ``bench_loader`` / ``bench_train_e2e``); kernel 6
+   and ``F.conv2d`` also at the training batch (B=32); the train-step
+   benchmarks ``cli/benchmark.py --what train`` and ``--what refine`` at
+   their defaults (B=8);
 7. a JSON line listing every ported kernel (``kernels``), with its launch
    count on the path that ported it (``launches``) and on each path
    (``launches_by_path``);
@@ -104,7 +130,9 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -123,6 +151,11 @@ TRAIN_STEPS = 3   # per phase
 # the data path's synthetic YCB root: real and synthetic training frames,
 # and the loader's workers
 DATA_FRAMES, DATA_WORKERS, E2E_STEPS = 32, 4, 20
+# the training CLI on that root: a batch that gives 4 steps per epoch
+CLI_BATCH = 16
+# the LineMOD evaluation path: ape, eggbox and glue (the symmetric two),
+# training frames per object, batch
+LM_OBJECTS, LM_TRAIN, LM_BATCH = (1, 10, 11), 8, 8
 # the KNN benchmark's shape (densefusion_tpu_torch/cli/benchmark.py)
 KNN_QUERIES, KNN_REFS = 250_000, 500
 SEED = 0
@@ -1192,6 +1225,370 @@ def data_path(add_dist, phase_conv, root: str) -> dict:
             "max_err": max_err, "generate_s": gen_s}
 
 
+@contextlib.contextmanager
+def counted_epochs(kernels: dict):
+    """Patch the port's ``Trainer`` so that every train and test epoch sets
+    the launch counts of ``kernels`` to 0 just before it and reads them
+    just after: yields ``{"train": [...], "test": [...]}``, one record per
+    epoch (epoch, phase, launches, seconds, the epoch's result)."""
+    from densefusion_tpu_torch.train import loop
+
+    records = {"train": [], "test": []}
+    originals = {kind: getattr(loop.Trainer, f"{kind}_epoch")
+                 for kind in records}
+
+    def counted(kind):
+        def epoch(self):
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            value = originals[kind](self)
+            torch.cuda.synchronize()
+            records[kind].append({
+                "epoch": self.curriculum.epoch, "phase": self._phase(),
+                "launches": {n: k.launches for n, k in kernels.items()},
+                "seconds": time.perf_counter() - t0, "value": value})
+            return value
+        return epoch
+
+    for kind in records:
+        setattr(loop.Trainer, f"{kind}_epoch", counted(kind))
+    try:
+        yield records
+    finally:
+        for kind, fn in originals.items():
+            setattr(loop.Trainer, f"{kind}_epoch", fn)
+
+
+def _check_epoch_launches(records: list, label: str) -> None:
+    """Every kernel of the path launched in every train epoch; kernel 6
+    three times per step (the PoseNet forward)."""
+    for r in records:
+        log(f"[{label}] epoch {r['epoch']} ({r['phase']}): "
+            f"{r['seconds']:.2f} s, avg_dis {r['value']:.5f}, launches "
+            f"{r['launches']}")
+        if any(n == 0 for n in r["launches"].values()):
+            raise AssertionError(f"[{label}] epoch {r['epoch']}: a kernel of "
+                                 f"the path never launched: {r['launches']}")
+        if r["launches"]["phase_conv"] % 3:
+            raise AssertionError(f"[{label}] epoch {r['epoch']}: kernel 6 "
+                                 f"launched {r['launches']['phase_conv']} "
+                                 "times, not 3 per step")
+
+
+def _train_metrics(log_dir: str) -> list:
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["kind"] == "train_epoch"]
+
+
+def _state_equal(a, b) -> list:
+    """Names of what differs between two port train states (parameters,
+    the active Adam's moments and steps by parameter name, the step, the
+    generator, the JAX key); empty when they are equal bit for bit."""
+    bad = []
+    for name in ("posenet", "refiner"):
+        sa, sb = getattr(a, name).state_dict(), getattr(b, name).state_dict()
+        bad += [f"{name}.{k}" for k in sa if not torch.equal(sa[k], sb[k])]
+    for module_a, module_b in ((a.posenet, b.posenet), (a.refiner, b.refiner)):
+        pb = dict(module_b.named_parameters())
+        for k, p in module_a.named_parameters():
+            st_a, st_b = a.optimizer.state.get(p), b.optimizer.state.get(pb[k])
+            if (st_a is None) != (st_b is None):
+                bad.append(f"adam state presence {k}")
+            elif st_a is not None:
+                bad += [f"adam {f} {k}" for f in ("step", "exp_avg",
+                                                  "exp_avg_sq")
+                        if not torch.equal(st_a[f], st_b[f])]
+    if a.step != b.step:
+        bad.append("step")
+    if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+        bad.append("generator")
+    if not np.array_equal(a.rng_key, b.rng_key):
+        bad.append("rng_key")
+    return bad
+
+
+def cli_train_path(kernels: dict, root: str, out: str, samples) -> dict:
+    """Phase 4g: ``cli.train.main`` at the YCB width on the 4f root: two
+    epochs, both gates after the first (decay and refine margins above any
+    distance), so epoch 2 trains the refiner on data rebuilt at 2600 mesh
+    points; each epoch's launches of kernels 1, 2 and 6 counted. Then a
+    fresh ``Trainer`` resumes from ``checkpoint_current`` (its state equal
+    bit for bit to the one saved), the file read back with the port's codec
+    holds the flax layout, epoch 3 trains, and ``PoseEstimator.
+    from_checkpoint(checkpoint_best_refine)`` equals, bit for bit, an
+    estimator built from the trainer's own state_dicts on B=64 samples."""
+    import dataclasses
+
+    from densefusion_tpu_torch import compat
+    from densefusion_tpu_torch.cli import train as train_cli
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.serve import PoseEstimator
+    from densefusion_tpu_torch.train import (
+        Trainer, load_checkpoint, save_checkpoint,
+    )
+    from densefusion_tpu_torch.train.msgpack import unpack
+
+    logs = os.path.join(out, "logs")
+    with counted_epochs(kernels) as rec:
+        trainer = train_cli.main([
+            "--dataset", "ycb", "--dataset_root", root,
+            "--batch_size", str(CLI_BATCH), "--workers", str(DATA_WORKERS),
+            "--nepoch", "2", "--decay_margin", "1e9", "--refine_margin",
+            "1e9", "--out_dir", out, "--log_dir", logs])
+        cur = trainer.curriculum
+        if not (cur.epoch == 3 and cur.decay_started and cur.refine_started
+                and cur.refine_steps > 0
+                and trainer.cfg.num_objects == NUM_OBJ
+                and trainer.train_ds[0].model_points.shape == (REFINE_MESH, 3)
+                and [r["phase"] for r in rec["train"]] == ["pose", "refine"]):
+            phases = [r["phase"] for r in rec["train"]]
+            raise AssertionError(f"[4g] curriculum after two epochs: {cur}, "
+                                 f"phases {phases}")
+        _check_epoch_launches(rec["train"], "4g")
+        ck_dir = os.path.join(out, "ycb")
+        current = os.path.join(ck_dir, "checkpoint_current")
+
+        # a fresh trainer resumes: everything saved comes back bit for bit
+        fresh = Trainer(dataclasses.replace(trainer.cfg, nepoch=3))
+        t0 = time.perf_counter()
+        fresh.setup(resume=current)
+        setup_s = time.perf_counter() - t0
+        bad = _state_equal(trainer.state, fresh.state)
+        if bad or fresh.curriculum.to_dict() != cur.to_dict():
+            raise AssertionError(f"[4g] resumed state differs: {bad[:8]} "
+                                 f"{fresh.curriculum} vs {cur}")
+        t0 = time.perf_counter()
+        load_checkpoint(current, fresh.state, restore_opt=True)
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        with open(os.path.join(current, "state.msgpack"), "rb") as f:
+            raw = unpack(f.read())
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(out, "timed_save"), fresh.state,
+                        fresh.curriculum, fresh.cfg)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        pose_tree, opt = raw["params_pose"]["params"], raw["opt_state"]
+        layout_ok = (
+            list(raw) == ["step", "params_pose", "params_refine",
+                          "opt_state", "rng", "torch_generator"]
+            and list(pose_tree) == ["cnn", "fusion", "head_c", "head_r",
+                                    "head_t"]
+            and pose_tree["cnn"]["trunk"]["stem"]["kernel"].shape
+            == (7, 7, 3, 64)
+            and pose_tree["cnn"]["up1"]["prelu"]["slope"].shape == ()
+            and raw["rng"].dtype == np.uint32 and raw["rng"].shape == (2,)
+            and set(opt) == {"0", "1"} and opt["1"] == {}
+            and list(opt["0"]) == ["count", "mu", "nu"]
+            and list(opt["0"]["mu"]["params"])
+            == list(raw["params_refine"]["params"])
+            and int(opt["0"]["count"]) == cur.refine_steps)
+        if not layout_ok:
+            raise AssertionError("[4g] checkpoint_current does not hold the "
+                                 "flax layout")
+        for to_torch, key, module in (
+                (compat.posenet_state_dict_from_flax, "params_pose",
+                 trainer.posenet),
+                (compat.refiner_state_dict_from_flax, "params_refine",
+                 trainer.refiner)):
+            want = to_torch(raw[key])
+            for k, v in module.state_dict().items():
+                if not torch.equal(v.cpu(), want[k]):
+                    raise AssertionError(f"[4g] {key} {k} differs from the "
+                                         "trainer's")
+        size = os.path.getsize(os.path.join(current, "state.msgpack"))
+        size_p1 = os.path.getsize(os.path.join(
+            ck_dir, "checkpoint_best_pose", "state.msgpack"))
+        log(f"[4g] fresh Trainer resumed from checkpoint_current in "
+            f"{setup_s:.2f} s (data, weights, load): parameters, Adam "
+            f"moments and steps, step {fresh.state.step}, generator, key, "
+            f"curriculum and cursor equal bit for bit; flax layout read "
+            f"back with the port's codec; state.msgpack {size} bytes "
+            f"(phase 2; phase 1 {size_p1}), load {load_ms:.1f} ms, save "
+            f"{save_ms:.1f} ms")
+        # serving from the best refine checkpoint against the trainer's
+        # weights (before epoch 3, which may save a new best)
+        best = os.path.join(ck_dir, "checkpoint_best_refine")
+        shape = dict(num_points=samples[0].points.shape[0],
+                     crop_size=samples[0].img.shape[0])
+        est_ck = PoseEstimator.from_checkpoint(best, NUM_OBJ, **shape)
+        states = [{k: v.cpu() for k, v in m.state_dict().items()}
+                  for m in (trainer.posenet, trainer.refiner)]
+        est_direct = PoseEstimator(
+            PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ), *states,
+            refine_iters=est_ck.pipeline.refine_iters, **shape)
+        kernels["phase_conv"].launches = 0
+        got = est_ck.estimate_batch(samples)
+        serve_launches = kernels["phase_conv"].launches
+        want = est_direct.estimate_batch(samples)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("[4g] from_checkpoint differs from the "
+                                 "trainer's own weights")
+        if serve_launches != 3:
+            raise AssertionError(f"[4g] serving from the checkpoint launched "
+                                 f"kernel 6 {serve_launches} times, not 3")
+        log(f"[4g] PoseEstimator.from_checkpoint(checkpoint_best_refine), "
+            f"K={est_ck.pipeline.refine_iters}: estimate_batch "
+            f"B={len(samples)} equal bit for bit to an estimator from the "
+            f"trainer's state_dicts; kernel 6 launches {serve_launches}")
+        fresh.run()
+        fresh.close()
+        if fresh.curriculum.epoch != 4 or len(rec["train"]) != 3:
+            raise AssertionError(f"[4g] the resumed run: {fresh.curriculum}")
+        _check_epoch_launches(rec["train"][2:], "4g")
+
+    metrics = _train_metrics(os.path.join(logs, "ycb"))
+    per_epoch = [{"epoch": m["epoch"], "phase": m["phase"],
+                  "seconds": m["seconds"], "steps": m["steps"],
+                  "steps_per_s": m["steps"] / m["seconds"],
+                  "input_bound_fraction": m["input_wait_s"] / m["seconds"],
+                  "launches": r["launches"]}
+                 for m, r in zip(metrics, rec["train"])]
+    for e in per_epoch:
+        log(f"[4g] epoch {e['epoch']} ({e['phase']}, "
+            f"B={trainer.cfg.batch_size}): "
+            f"{e['seconds']:.3f} s, {e['steps']} steps, "
+            f"{e['steps_per_s']:.3f} steps/s, input-bound fraction "
+            f"{e['input_bound_fraction']:.3f} (time waiting on the loader "
+            f"over the epoch)")
+    return {"epochs": per_epoch, "test_epochs": rec["test"],
+            "checkpoint_bytes": size, "checkpoint_bytes_phase1": size_p1,
+            "checkpoint_save_ms": save_ms,
+            "checkpoint_load_ms": load_ms, "resume_setup_s": setup_s,
+            "serve_launches": serve_launches,
+            "pose_state": states[0]}
+
+
+def linemod_eval_path(kernels: dict, root: str, out: str) -> dict:
+    """Phase 4h: a synthetic LineMOD root (eggbox and glue among its
+    objects) at the LineMOD width (N=500, 192 px), one epoch of
+    ``cli.train``, then ``cli.eval_linemod`` on its checkpoint with native
+    crops off and on: ``result.json`` with rates in [0, 1], and the launches
+    of kernels 5 (ADD-S scoring) and 6 in each evaluation."""
+    from densefusion_tpu_torch.cli import eval_linemod
+    from densefusion_tpu_torch.cli import train as train_cli
+    from densefusion_tpu_torch.data import generate_linemod_style_dataset
+
+    t0 = time.perf_counter()
+    generate_linemod_style_dataset(root, objlist=LM_OBJECTS,
+                                   n_train=LM_TRAIN, n_test=20, seed=SEED)
+    gen_s = time.perf_counter() - t0
+    objs = [str(o) for o in LM_OBJECTS]
+    train_kernels = {k: kernels[k] for k in ("add_dist_paired",
+                                             "add_dist_min", "phase_conv")}
+    with counted_epochs(train_kernels) as rec:
+        train_cli.main([
+            "--dataset", "linemod", "--dataset_root", root, "--objlist",
+            *objs, "--nepoch", "1", "--repeat_epoch", "1", "--batch_size",
+            str(LM_BATCH), "--workers", str(DATA_WORKERS), "--out_dir", out,
+            "--log_dir", os.path.join(out, "logs")])
+    _check_epoch_launches(rec["train"], "4h")
+    ck = os.path.join(out, "linemod", "checkpoint_best_pose")
+    eval_kernels = {k: kernels[k] for k in ("adds_remap", "phase_conv")}
+    results = {}
+    for native in ("off", "on"):
+        for k in eval_kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        eval_linemod.main([
+            "--dataset_root", root, "--checkpoint", ck, "--objlist", *objs,
+            "--output_dir", os.path.join(out, f"eval_{native}"),
+            "--native_crops", native])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in eval_kernels.items()}
+        with open(os.path.join(out, f"eval_{native}", "result.json")) as f:
+            result = json.load(f)
+        rates = [result["rate_per_pixel"], result["rate_refined"]] + [
+            o[key] for o in result["per_object"]
+            for key in ("rate_per_pixel", "rate_refined")]
+        if not (all(0.0 <= r <= 1.0 for r in rates)
+                and result["native_crops"] == (native == "on")
+                and len(result["per_object"]) == len(LM_OBJECTS)):
+            raise AssertionError(f"[4h] result.json: {result}")
+        if 0 in launches.values():
+            raise AssertionError(f"[4h] eval (native crops {native}): a "
+                                 f"kernel never launched: {launches}")
+        results[native] = {"seconds": seconds, "launches": launches,
+                           "rate_per_pixel": result["rate_per_pixel"],
+                           "rate_refined": result["rate_refined"],
+                           "iterations": result["iterations"],
+                           "lost": result["lost_detections"]}
+        log(f"[4h] eval_linemod (native crops {native}, "
+            f"{sum(o['count'] for o in result['per_object'])} frames, "
+            f"--iterations {result['iterations']}): per-pixel "
+            f"{result['rate_per_pixel']:.4f}, refined "
+            f"{result['rate_refined']:.4f}, {seconds:.2f} s, launches "
+            f"{launches}")
+    return {"generate_s": gen_s, "train_epoch": rec["train"][0]["launches"],
+            "eval": results}
+
+
+@contextlib.contextmanager
+def float64_casts():
+    """The port casts to float32 in a few places (heads, embedding, the
+    distance op); for the float64 reference those casts keep float64."""
+    keep = torch.Tensor.float
+    torch.Tensor.float = lambda self: self.double()
+    try:
+        yield
+    finally:
+        torch.Tensor.float = keep
+
+
+def phase1(state, batch, dev, dtype, use_adds=True):
+    """One phase-1 loss and gradient of a PoseNet with ``state`` in eval
+    mode (dropout off) on ``dev`` in ``dtype``: (loss, {name: grad float64
+    on the CPU}, R, t of row 0)."""
+    from densefusion_tpu_torch.geometry import quat_normalize, quat_to_matrix
+    from densefusion_tpu_torch.losses import pose_loss
+    from densefusion_tpu_torch.models import PoseNet
+
+    pose = PoseNet(NUM_OBJ)
+    pose.load_state_dict(state)
+    pose = pose.to(dev, dtype).eval()
+    b = type(batch)(*(x.to(dev, dtype) if x.is_floating_point()
+                      else x.to(dev) for x in batch))
+    ctx = float64_casts() if dtype == torch.float64 else \
+        contextlib.nullcontext()
+    with ctx:
+        out = pose(b.img, b.points, b.choose, b.obj_idx)
+        lo = pose_loss(out["pred_r"], out["pred_t"], out["pred_c"],
+                       b.target, b.model_points, b.points, b.sym, W,
+                       use_adds=use_adds, sample_weight=b.valid.to(dtype),
+                       pred_c_logit=out["pred_c_logit"])
+        lo.loss.backward()
+    grads = {k: p.grad.detach().double().cpu()
+             for k, p in pose.named_parameters()}
+    with torch.no_grad():
+        R = quat_to_matrix(quat_normalize(out["pred_r"][:1].float()))
+        t = (b.points + out["pred_t"])[:1].float()
+    return float(lo.loss.detach()), grads, R, t
+
+
+def worst(got: dict, want: dict) -> dict:
+    """The parameter with the largest max|diff| / max|grad|."""
+    errs = [(float((got[k] - want[k]).abs().max())
+             / float(want[k].abs().max()), k)
+            for k in want if float(want[k].abs().max()) > 0]
+    e, k = max(errs)
+    return {"max_rel_to_max": e, "param": k}
+
+
+def trained_grad_reading(pose_state: dict) -> dict:
+    """Phase 5c: the phase-1 gradient at B=4 with dropout off on [4g]'s
+    trained PoseNet, card against CPU, and each against a float64
+    reference on the CPU: a reading, not a gate (the seeded-weights gate
+    of 5b stays as it is)."""
+    batch = train_batch(np.random.default_rng(SEED + 3), 4, NUM_MESH, "cpu")
+    ref = phase1(pose_state, batch, "cpu", torch.float64)
+    card = phase1(pose_state, batch, "cuda", torch.float32)
+    cpu = phase1(pose_state, batch, "cpu", torch.float32)
+    return {"card_vs_cpu": worst(card[1], cpu[1]),
+            "card_vs_f64": worst(card[1], ref[1]),
+            "cpu_vs_f64": worst(cpu[1], ref[1]),
+            "loss_rel_card_vs_cpu": abs(card[0] - cpu[0]) / abs(cpu[0])}
+
+
 def train_cpu_agreement(states, rng) -> dict:
     """Phase 5b: one phase-1 loss and gradient (PoseNet in eval mode, so
     dropout off; ADD-S on one row) and one phase-2 step
@@ -1330,6 +1727,57 @@ def cpu_agreement(est_gpu, est_cpu, samples) -> dict:
     if err["quat"] > 1e-4 or err["trans"] > 1e-4:
         raise AssertionError(f"refined poses differ card vs CPU: {err}")
     return err
+
+
+def conv_timings(phase_conv, bsz: int, gen, card: str) -> dict:
+    """Kernel 6 at the decoder's three phase-conv shapes at batch ``bsz``,
+    beside its plain version and the library convolution on the same
+    padded input; the library and the kernel timed in turns (library,
+    kernel, kernel, library), each figure the mean of its two readings."""
+    import torch.nn.functional as F
+    from densefusion_tpu_torch.device import precision_policy
+
+    conv_times = {}
+    for name, hw, cin, cout in DECODER_CONVS:
+        xp = torch.randn((bsz, cin, hw + 2, hw + 2), device="cuda",
+                         generator=gen)
+        pk = torch.randn((3, 3, cin, cout), device="cuda",
+                         generator=gen) / np.sqrt(9 * cin)
+        w_oihw = pk.permute(3, 2, 0, 1).contiguous()
+        readings = [
+            cuda_ms(lambda: F.conv2d(xp, w_oihw), iters=10, warmup=2)
+            if fn == "library" else
+            graph_ms(lambda: phase_conv.phase_conv_kernel(xp, pk),
+                     replays=20)
+            for fn in ("library", "kernel", "kernel", "library")]
+        k_ms = (readings[1] + readings[2]) / 2
+        l_ms = (readings[0] + readings[3]) / 2
+        p_ms = cuda_ms(lambda: phase_conv.conv3x3_valid_plain_nchw(xp, pk),
+                       iters=3, warmup=1)
+        got = phase_conv.phase_conv_kernel(xp, pk)
+        plain = phase_conv.conv3x3_valid_plain_nchw(xp, pk)
+        rel_plain = float((got - plain).abs().max() / plain.abs().max())
+        lib = F.conv2d(xp, w_oihw)
+        rel_lib = float((got - lib).abs().max() / lib.abs().max())
+        bnd, by = conv_bound_ms(bsz, hw, hw, cin, cout)
+        ffma, _ = conv_bound_ms(bsz, hw, hw, cin, cout, "ffma")
+        conv_times[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                            "kernel_over_library": k_ms / l_ms,
+                            "readings_ms": {"library": readings[::3],
+                                            "kernel": readings[1:3]},
+                            "bound_ms": bnd, "bound_by": by,
+                            "bound_arithmetic": "3xtf32",
+                            "bound_ffma_ms": ffma,
+                            "rel_err_vs_plain": rel_plain,
+                            "rel_diff_vs_library": rel_lib}
+        log(f"[6] phase_conv {name} (B={bsz}, {hw}x{hw}, {cin} -> {cout}): "
+            f"kernel {k_ms:.4f} ms (graph replays), F.conv2d {l_ms:.4f} ms "
+            f"({precision_policy()}), kernel / library {k_ms / l_ms:.3f}; "
+            f"plain {p_ms:.4f} ms; bound {bnd:.4f} ms (3xTF32, {by}), "
+            f"{k_ms / bnd:.2f}x it; FFMA bound {ffma:.4f} ms; kernel vs "
+            f"plain {rel_plain:.3g}, vs F.conv2d {rel_lib:.3g} of the "
+            f"largest; card {card}")
+    return conv_times
 
 
 def remap_bound_ms(bsz, nq, nr, active_rows) -> tuple[float, str]:
@@ -1506,6 +1954,35 @@ def run() -> None:
     path_launches["data"] = data["launches"]
     log(f"[4f] data path: launches over all steps {data['launches']}")
 
+    # 4g. the training CLI on the 4f root: two epochs through both gates, a
+    # resume in a fresh Trainer, serving from the checkpoint (launch counts
+    # reset before each epoch, read after it)
+    ck_out = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    atexit.register(shutil.rmtree, ck_out, True)
+    train_kernels = {"add_dist_paired": add_dist.paired_kernel,
+                     "add_dist_min": add_dist.min_kernel,
+                     "phase_conv": phase_conv.phase_conv_kernel}
+    cli = cli_train_path(train_kernels, data_root, ck_out, samples)
+    trained_pose = cli.pop("pose_state")
+    path_launches["cli_train"] = {
+        n: sum(e["launches"][n] for e in cli["epochs"]) for n in train_kernels}
+    log(f"[4g] training CLI: launches over its three epochs "
+        f"{path_launches['cli_train']}")
+
+    # 4h. LineMOD: one epoch of the training CLI, then the evaluation CLI
+    lm_dir = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    atexit.register(shutil.rmtree, lm_dir, True)
+    lm = linemod_eval_path({**train_kernels,
+                            "adds_remap": knn.adds_remap_kernel},
+                           os.path.join(lm_dir, "root"),
+                           os.path.join(lm_dir, "out"))
+    path_launches["linemod_train"] = lm["train_epoch"]
+    path_launches["linemod_eval"] = {
+        n: sum(r["launches"][n] for r in lm["eval"].values())
+        for n in ("adds_remap", "phase_conv")}
+    log(f"[4h] LineMOD: train epoch launches {lm['train_epoch']}, "
+        f"evaluation launches {path_launches['linemod_eval']}")
+
     # 5. card vs CPU, TF32 off
     est_cpu = seeded_estimator(None, states, device="cpu")[0]
     agree = cpu_agreement(est, est_cpu, samples)
@@ -1518,6 +1995,11 @@ def run() -> None:
     train_agree = train_cpu_agreement(states, np.random.default_rng(SEED + 3))
     log(f"[5b] training card vs CPU (B=4, dropout off, TF32 off): "
         f"{train_agree}")
+    trained_grads = trained_grad_reading(trained_pose)
+    log(f"[5c] phase-1 gradient on the 4g checkpoint's trained weights (B=4, "
+        f"dropout off), a reading (the 5b gate is 1e-3): card vs CPU "
+        f"{trained_grads['card_vs_cpu']}; against float64: card "
+        f"{trained_grads['card_vs_f64']}, CPU {trained_grads['cpu_vs_f64']}")
 
     # 6. timings
     from densefusion_tpu_torch.data import collate
@@ -1755,52 +2237,24 @@ def run() -> None:
             f"{k_ms / bnd:.2f}x; {n} launches on the search path; launches "
             f"x (time - bound) {excess[name]:.4f} ms; card {card}")
 
-    # kernel 6 at the decoder's three phase-conv shapes, beside its plain
-    # version and the library convolution on the same padded input; the
-    # library and the kernel timed in turns (library, kernel, kernel,
-    # library), each figure the mean of its two readings
-    import torch.nn.functional as F
+    # kernel 6 at the decoder's three phase-conv shapes at the serving
+    # batch, and at the training batch (B=32: the 3 launches of every train
+    # and data step)
     gen = torch.Generator("cuda").manual_seed(SEED)
-    conv_times = {}
-    for name, hw, cin, cout in DECODER_CONVS:
-        xp = torch.randn((BATCH, cin, hw + 2, hw + 2), device="cuda",
-                         generator=gen)
-        pk = torch.randn((3, 3, cin, cout), device="cuda",
-                         generator=gen) / np.sqrt(9 * cin)
-        w_oihw = pk.permute(3, 2, 0, 1).contiguous()
-        readings = [
-            cuda_ms(lambda: F.conv2d(xp, w_oihw), iters=10, warmup=2)
-            if fn == "library" else
-            graph_ms(lambda: phase_conv.phase_conv_kernel(xp, pk),
-                     replays=20)
-            for fn in ("library", "kernel", "kernel", "library")]
-        k_ms = (readings[1] + readings[2]) / 2
-        l_ms = (readings[0] + readings[3]) / 2
-        p_ms = cuda_ms(lambda: phase_conv.conv3x3_valid_plain_nchw(xp, pk),
-                       iters=3, warmup=1)
-        got = phase_conv.phase_conv_kernel(xp, pk)
-        plain = phase_conv.conv3x3_valid_plain_nchw(xp, pk)
-        rel_plain = float((got - plain).abs().max() / plain.abs().max())
-        lib = F.conv2d(xp, w_oihw)
-        rel_lib = float((got - lib).abs().max() / lib.abs().max())
-        bnd, by = conv_bound_ms(BATCH, hw, hw, cin, cout)
-        ffma, _ = conv_bound_ms(BATCH, hw, hw, cin, cout, "ffma")
-        conv_times[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                            "kernel_over_library": k_ms / l_ms,
-                            "readings_ms": {"library": readings[::3],
-                                            "kernel": readings[1:3]},
-                            "bound_ms": bnd, "bound_by": by,
-                            "bound_arithmetic": "3xtf32",
-                            "bound_ffma_ms": ffma,
-                            "rel_err_vs_plain": rel_plain,
-                            "rel_diff_vs_library": rel_lib}
-        log(f"[6] phase_conv {name} (B={BATCH}, {hw}x{hw}, {cin} -> {cout}): "
-            f"kernel {k_ms:.4f} ms (graph replays), F.conv2d {l_ms:.4f} ms "
-            f"({precision_policy()}), kernel / library {k_ms / l_ms:.3f}; "
-            f"plain {p_ms:.4f} ms; bound {bnd:.4f} ms (3xTF32, {by}), "
-            f"{k_ms / bnd:.2f}x it; FFMA bound {ffma:.4f} ms; kernel vs "
-            f"plain {rel_plain:.3g}, vs F.conv2d {rel_lib:.3g} of the "
-            f"largest; card {card}")
+    conv_times = conv_timings(phase_conv, BATCH, gen, card)
+    conv_times_b32 = conv_timings(phase_conv, TRAIN_BATCH, gen, card)
+    # the train-step benchmarks at their defaults (B=8, a quarter of the
+    # rows symmetric; phase 2 at M=2600, K=2)
+    from densefusion_tpu_torch.cli import benchmark
+    bench_steps = {what: benchmark.main(["--what", what])
+                   for what in ("train", "refine")}
+    log(f"[6] cli/benchmark.py --what train: "
+        f"{bench_steps['train']['train_ms_per_step']:.3f} ms per step, "
+        f"{bench_steps['train']['train_frames_per_s']:.1f} frames/s; "
+        f"--what refine: {bench_steps['refine']['refine_ms_per_step']:.3f} "
+        f"ms per step, {bench_steps['refine']['refine_frames_per_s']:.1f} "
+        f"frames/s (B=8, f32, host clock, synced per step); card {card}")
+
     faster = all(c["ms"] <= c["library_ms"] for c in conv_times.values())
     log(f"[6] phase_conv: kernel no slower than F.conv2d at all three "
         f"shapes: {faster}; \"auto\" on the card is "
@@ -1883,6 +2337,7 @@ def run() -> None:
         "kernel_over_library": up1["kernel_over_library"],
         "library_note": "F.conv2d on the same padded input, VALID, TF32 off",
         "shape": "up1 (B=64, 24x24, 1024 -> 1024)", "by_shape": conv_times,
+        "by_shape_b32": conv_times_b32,
         "parity": "ok", "build_s": build_s,
     })
     summary = {"pipeline_ms_b64": pipe_ms,
@@ -1895,6 +2350,9 @@ def run() -> None:
                "data_path": {k: data[k] for k in ("losses", "sym_rows",
                                                   "max_err", "generate_s")},
                "loader": loader_rates, "train_e2e": e2e,
+               "cli_train": cli, "linemod_eval": lm,
+               "bench_steps": bench_steps,
+               "trained_grad_reading": trained_grads,
                "bench_knn": search["bench"],
                "frames_per_s_b64_other_decoders": decoder_fps,
                "decoder_path_rel_errors": decoder["rel_errors"],

@@ -1,11 +1,14 @@
 """Benchmark CLI: the 1-NN search at the training ADD-S query count, the
-host data plane, and loader-fed training.
+train steps of both phases, the host data plane, and loader-fed training.
 
 Counterpart of ``densefusion_tpu/cli/benchmark.py`` (``bench_knn``,
-``bench_loader`` and ``bench_train_e2e``: same shapes, seeds and keys).
-Runs on the card unless given ``--device cpu``::
+``bench_train_step``, ``bench_refine_step``, ``bench_loader`` and
+``bench_train_e2e``: same shapes, seeds and keys). Runs on the card unless
+given ``--device cpu``::
 
     python -m densefusion_tpu_torch.cli.benchmark --what knn
+    python -m densefusion_tpu_torch.cli.benchmark --what train
+    python -m densefusion_tpu_torch.cli.benchmark --what refine
     python -m densefusion_tpu_torch.cli.benchmark --what loader
     python -m densefusion_tpu_torch.cli.benchmark --what train_e2e
 
@@ -14,6 +17,12 @@ Each prints one JSON object with the device it ran on.
 * ``knn``: ``knn_backend`` (``cuda``: the kernel of ``csrc/nn.cu``;
   ``plain``: its plain PyTorch version on the CPU), ``knn_us`` per search
   (host clock, each search ended by a sync), ``knn_pairs_per_s``.
+* ``train``: the phase-1 step (forward, ADD-S loss, backward, Adam) at
+  B=8, N=1000, M=500, 192 px, 21 objects, a quarter of the rows symmetric,
+  on one seeded batch: ms per step (host clock, each step ended by a
+  sync), frames/s; float32.
+* ``refine``: the phase-2 step (frozen PoseNet, K=2 refiner iterations
+  against M=2600 model points) at the same batch: ms per step, frames/s.
 * ``loader``: samples/s of the YCB training reader through ``BatchLoader``
   on a synthetic root (5 classes, 32 real + 32 synthetic 480x640 frames,
   N=1000, 192 px crops): cold (PNG decode), warm (decoded-frame cache,
@@ -38,6 +47,8 @@ from densefusion_tpu_torch.ops.knn import nearest_neighbor
 
 # the training ADD-S shape: B*N*M queries vs M refs (8 x 500 hyp x 500 mesh)
 NUM_QUERY, NUM_REF = 250_000, 500
+# the train-step benchmarks: YCB's object count and confidence weight
+NUM_OBJ, W = 21, 0.015
 
 
 def bench_knn(repeats: int = 50, device: str | torch.device | None = None,
@@ -66,6 +77,80 @@ def bench_knn(repeats: int = 50, device: str | torch.device | None = None,
             "knn_us": dt * 1e6, "knn_pairs_per_s": num_query * NUM_REF / dt,
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else "cpu")}
+
+
+def _step_batch(b: int, m: int, sym_fraction: float, dev):
+    """The JAX benchmark's seeded batch: N=1000 points, 192 px crops, 21
+    objects, the first ``round(sym_fraction * b)`` rows symmetric."""
+    from densefusion_tpu_torch.data import PoseSample, to_device
+
+    n, crop = 1000, 192
+    rng = np.random.default_rng(0)
+    batch = PoseSample(
+        points=rng.standard_normal((b, n, 3)).astype(np.float32) * 0.05,
+        choose=rng.integers(0, crop * crop, (b, n)).astype(np.int32),
+        img=rng.standard_normal((b, crop, crop, 3)).astype(np.float32),
+        target=rng.standard_normal((b, m, 3)).astype(np.float32) * 0.05,
+        model_points=rng.standard_normal((b, m, 3)).astype(np.float32) * 0.05,
+        obj_idx=rng.integers(0, NUM_OBJ, (b,)).astype(np.int32),
+        sym=np.arange(b) < round(sym_fraction * b),
+        valid=np.ones((b,), bool))
+    return to_device(batch, dev)
+
+
+def _time_steps(step, batch, repeats: int) -> float:
+    """Seconds per step after one warm-up step, each step ended by a sync
+    on its loss (the JAX benchmark's ``_sync``)."""
+    float(step(batch, W)["loss"])
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        float(step(batch, W)["loss"])
+    return (time.perf_counter() - t0) / repeats
+
+
+def bench_train_step(batch: int = 8, repeats: int = 10,
+                     sym_fraction: float = 0.25,
+                     device: str | torch.device | None = None) -> dict:
+    """The phase-1 step (forward, ADD-S loss, backward, Adam) at the YCB
+    width; ``sym_fraction`` of the rows run the ADD-S branch (the YCB class
+    list makes ~24% of samples symmetric)."""
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.train import (
+        create_train_state, make_pose_train_step,
+    )
+
+    dev = resolve_device(device)
+    data = _step_batch(batch, 500, sym_fraction, dev)
+    state = create_train_state(PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ),
+                               1e-4, 0, dev)
+    dt = _time_steps(make_pose_train_step(state, use_adds=True), data,
+                     repeats)
+    return {"train_batch": batch, "train_ms_per_step": dt * 1e3,
+            "train_frames_per_s": batch / dt, "dtype": "float32",
+            "device": _device_name(dev)}
+
+
+def bench_refine_step(batch: int = 8, repeats: int = 10,
+                      sym_fraction: float = 0.25, mesh_points: int = 2600,
+                      refine_iters: int = 2,
+                      device: str | torch.device | None = None) -> dict:
+    """The phase-2 step at the YCB refine shape: frozen PoseNet forward,
+    then ``refine_iters`` refiner iterations, each with the N=1 ADD-S loss
+    against ``mesh_points`` model points."""
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.train import (
+        create_train_state, make_refine_train_step,
+    )
+
+    dev = resolve_device(device)
+    data = _step_batch(batch, mesh_points, sym_fraction, dev)
+    state = create_train_state(PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ),
+                               1e-4, 0, dev)
+    dt = _time_steps(make_refine_train_step(state, refine_iters), data,
+                     repeats)
+    return {"refine_batch": batch, "refine_mesh_points": mesh_points,
+            "refine_ms_per_step": dt * 1e3, "refine_frames_per_s": batch / dt,
+            "dtype": "float32", "device": _device_name(dev)}
 
 
 def _device_name(dev: torch.device) -> str:
@@ -217,13 +302,15 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--what", default="knn",
-                   choices=["knn", "loader", "train_e2e"])
+                   choices=["knn", "train", "refine", "loader", "train_e2e"])
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     p.add_argument("--queries", type=int, default=NUM_QUERY,
                    help="knn: query count (a smaller one for a CPU run)")
     p.add_argument("--workers", type=int, default=4)
-    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--batch", type=int, default=None,
+                   help="batch size (default: 8 for train / refine, 16 for "
+                        "loader / train_e2e)")
     p.add_argument("--dataset_root", default=None,
                    help="loader / train_e2e: an existing YCB-format root "
                         "(default: generate a synthetic one)")
@@ -238,12 +325,17 @@ def main(argv=None) -> dict:
                    help="loader / train_e2e: crop size (smaller for a CPU "
                         "run)")
     args = p.parse_args(argv)
-    data_kw = dict(workers=args.workers, batch=args.batch,
+    data_kw = dict(workers=args.workers, batch=args.batch or 16,
                    dataset_root=args.dataset_root,
                    num_points=args.num_points, crop_size=args.crop_size,
                    device=args.device)
     if args.what == "knn":
         results = bench_knn(device=args.device, num_query=args.queries)
+    elif args.what == "train":
+        results = bench_train_step(batch=args.batch or 8, device=args.device)
+    elif args.what == "refine":
+        results = bench_refine_step(batch=args.batch or 8,
+                                    device=args.device)
     elif args.what == "loader":
         results = bench_loader(**data_kw)
     else:

@@ -1,17 +1,28 @@
-"""Weights carried across from the JAX package.
+"""Weights and optimizer state carried between the JAX package and the port.
 
 Converts the JAX package's parameter trees — nested dicts of numpy arrays
 ``{"params": {...}}``, as ``jax.tree.map(np.asarray, variables)`` gives them
 — into state_dicts under the reference's torch names
 (``cnn.model.module.feats.conv1.weight``, ``conv1_r.weight``, ...), which
 the port's modules load with ``load_state_dict(strict=True)``. A reference
-``.pth`` has the same names, so it loads the same way.
+``.pth`` has the same names, so it loads the same way. The inverse
+(``*_params_from_state_dict``) gives back the tree the JAX package's
+``create_train_state`` makes, keys sorted at every level as ``jax.jit``
+returns them.
 
 Layout transforms (the inverse of the JAX package's importer):
 
 * flax Conv ``(kh, kw, in, out)`` -> Conv2d ``(out, in, kh, kw)``
 * Dense ``(in, out)`` -> Conv1d k=1 ``(out, in, 1)`` or Linear ``(out, in)``
 * PReLU scalar slope -> ``(1,)``
+
+Optimizer state: torch Adam's per-parameter ``exp_avg`` / ``exp_avg_sq`` /
+``step`` are optax ``adam``'s ``mu`` / ``nu`` / ``count`` (the same update,
+``tests/test_torch_train.py``), each moment under its parameter's flax path
+and layout. ``flax.serialization`` writes ``optax.adam``'s
+``(ScaleByAdamState, EmptyState)`` as ``{"0": {"count", "mu", "nu"},
+"1": {}}``, and ``optax.MultiSteps`` around it as ``{"mini_step",
+"gradient_step", "inner_opt_state", "acc_grads", "skip_state"}``.
 """
 
 from __future__ import annotations
@@ -42,6 +53,16 @@ def _bias(w):
 
 def _prelu(w):
     return np.reshape(w, (1,))
+
+
+# torch layout -> flax layout, for each transform above
+_INVERSE = {
+    _conv2d: lambda w: np.transpose(w, (2, 3, 1, 0)),   # OIHW -> HWIO
+    _conv1d: lambda w: np.transpose(w[:, :, 0], (1, 0)),
+    _linear: lambda w: np.transpose(w, (1, 0)),
+    _bias: lambda w: w,
+    _prelu: lambda w: np.reshape(w, ()),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -133,20 +154,155 @@ def _export(params: Mapping, mapping: dict) -> dict[str, torch.Tensor]:
             raise KeyError(f"no torch mapping for flax param {'/'.join(path)}")
         key, transform = mapping[path]
         value = transform(np.asarray(leaf, np.float32))
-        out[key] = torch.from_numpy(np.ascontiguousarray(value))
+        # a writable copy: leaves read from a checkpoint are read-only views
+        out[key] = torch.from_numpy(np.array(value, order="C"))
     return out
+
+
+def _to_numpy(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.asarray(value, np.float32)
+
+
+def _import(named: Mapping, mapping: dict) -> dict:
+    """torch-named tensors -> ``{"params": tree}`` under ``mapping``'s flax
+    paths, in flax's layouts; a name with no flax path raises."""
+    inverse = {key: (path, _INVERSE[transform])
+               for path, (key, transform) in mapping.items()}
+    flat = {}
+    for key, value in named.items():
+        if key not in inverse:
+            raise KeyError(f"no flax path for torch key {key!r}")
+        path, transform = inverse[key]
+        flat[path] = np.array(transform(_to_numpy(value)), order="C")
+    tree: dict = {}
+    for path in sorted(flat):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = flat[path]
+    return {"params": tree}
+
+
+def _posenet_map(variant: str = "resnet18",
+                 prefix: str = "cnn.model.module.") -> dict:
+    return {**_pspnet_map(prefix, variant), **_fusion_map("feat."),
+            **_posenet_head_map()}
+
+
+def _refiner_map() -> dict:
+    return {**_fusion_map("feat."), **_refiner_head_map()}
 
 
 def posenet_state_dict_from_flax(params: Mapping, variant: str = "resnet18",
                                  prefix: str = "cnn.model.module."
                                  ) -> dict[str, torch.Tensor]:
     """JAX ``PoseNet`` params -> the reference ``PoseNet`` state_dict names."""
-    mapping = {**_pspnet_map(prefix, variant), **_fusion_map("feat."),
-               **_posenet_head_map()}
-    return _export(params, mapping)
+    return _export(params, _posenet_map(variant, prefix))
 
 
 def refiner_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """JAX ``PoseRefineNet`` params -> the reference ``PoseRefineNet``
     state_dict names."""
-    return _export(params, {**_fusion_map("feat."), **_refiner_head_map()})
+    return _export(params, _refiner_map())
+
+
+def posenet_params_from_state_dict(state_dict: Mapping,
+                                   variant: str = "resnet18",
+                                   prefix: str = "cnn.model.module.") -> dict:
+    """The port's (or a reference) ``PoseNet`` state_dict -> the JAX
+    ``PoseNet`` params ``{"params": ...}`` of numpy arrays."""
+    return _import(state_dict, _posenet_map(variant, prefix))
+
+
+def refiner_params_from_state_dict(state_dict: Mapping) -> dict:
+    """``PoseRefineNet`` state_dict -> the JAX ``PoseRefineNet`` params."""
+    return _import(state_dict, _refiner_map())
+
+
+# ---------------------------------------------------------------------------
+# Optimizer state: torch Adam <-> optax adam / MultiSteps
+# ---------------------------------------------------------------------------
+
+_KEY_MAPS = {"pose": _posenet_map, "refine": _refiner_map}
+"""Checkpoint phase (``params_pose`` / ``params_refine``) -> its key map."""
+
+
+def adam_to_optax(optimizer: torch.optim.Optimizer, module, kind: str
+                  ) -> dict:
+    """A torch Adam over ``module``'s parameters -> optax adam's state as
+    flax serializes it. ``count`` is the largest per-parameter ``step`` (a
+    parameter Adam has not stepped has zero moments, which optax's update
+    leaves at zero too)."""
+    mapping = _KEY_MAPS[kind]()
+    mu, nu, count = {}, {}, 0
+    for name, p in module.named_parameters():
+        st = optimizer.state.get(p, {})
+        if "exp_avg" in st:
+            mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+            count = max(count, int(st["step"]))
+        else:
+            mu[name] = nu[name] = torch.zeros_like(p)
+    return {"0": {"count": np.asarray(count, np.int32),
+                  "mu": _import(mu, mapping), "nu": _import(nu, mapping)},
+            "1": {}}
+
+
+def _named_tensors(tree: Mapping, mapping: dict, module) -> dict:
+    """A flax tree -> {torch name: tensor} for exactly ``module``'s
+    parameters, on their devices; raises on a missing or extra leaf."""
+    named = _export(tree, mapping)
+    params = dict(module.named_parameters())
+    if set(named) != set(params):
+        raise KeyError(f"flax tree has {sorted(set(named) - set(params))} "
+                       f"beyond and lacks {sorted(set(params) - set(named))} "
+                       "of the module's parameters")
+    return {k: v.to(params[k].device) for k, v in named.items()}
+
+
+def adam_from_optax(optimizer: torch.optim.Optimizer, module, kind: str,
+                    opt_state: Mapping) -> None:
+    """Load optax adam's serialized state into ``optimizer`` (a torch Adam
+    over ``module``), matching moments to parameters by name through the
+    key map, never by position. Raises ``KeyError`` when the tree is not
+    adam's over this module."""
+    if set(opt_state) != {"0", "1"} or set(opt_state["0"]) != {
+            "count", "mu", "nu"}:
+        raise KeyError(f"not optax adam's state: keys {sorted(opt_state)}")
+    mapping = _KEY_MAPS[kind]()
+    mu = _named_tensors(opt_state["0"]["mu"], mapping, module)
+    nu = _named_tensors(opt_state["0"]["nu"], mapping, module)
+    step = float(np.asarray(opt_state["0"]["count"]))
+    optimizer.state.clear()
+    for name, p in module.named_parameters():
+        optimizer.state[p] = {"step": torch.tensor(step),
+                              "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+
+
+def multisteps_to_optax(optimizer, module, kind: str, accum) -> dict:
+    """``optax.MultiSteps(adam)``'s state from the torch Adam and the
+    step's :class:`~densefusion_tpu_torch.train.state.GradAccum`."""
+    named = dict(zip((n for n, _ in module.named_parameters()), accum.acc))
+    return {"mini_step": np.asarray(accum.mini_step, np.int32),
+            "gradient_step": np.asarray(accum.gradient_step, np.int32),
+            "inner_opt_state": adam_to_optax(optimizer, module, kind),
+            "acc_grads": _import(named, _KEY_MAPS[kind]()),
+            "skip_state": {}}
+
+
+def multisteps_from_optax(optimizer, module, kind: str, accum,
+                          opt_state: Mapping) -> None:
+    """Load ``optax.MultiSteps(adam)``'s serialized state into the torch
+    Adam and ``accum`` (its counters and accumulated gradients)."""
+    want = {"mini_step", "gradient_step", "inner_opt_state", "acc_grads",
+            "skip_state"}
+    if set(opt_state) != want:
+        raise KeyError(f"not optax MultiSteps' state: keys "
+                       f"{sorted(opt_state)}")
+    adam_from_optax(optimizer, module, kind, opt_state["inner_opt_state"])
+    acc = _named_tensors(opt_state["acc_grads"], _KEY_MAPS[kind](), module)
+    for a, (name, _) in zip(accum.acc, module.named_parameters()):
+        a.copy_(acc[name])
+    accum.mini_step = int(np.asarray(opt_state["mini_step"]))
+    accum.gradient_step = int(np.asarray(opt_state["gradient_step"]))

@@ -7,10 +7,16 @@ one object; a whole frame's detections run as one batch.
 
 Example::
 
+    est = PoseEstimator.from_checkpoint(
+        "trained_models/ycb/checkpoint_best_refine", num_obj=21,
+        num_points=1000)
+    poses = est.estimate_frame(rgb, depth, label, YCB_CAM_1)
+
+or from state_dicts under the reference's names::
+
     posenet, refiner = PoseNet(num_obj=21), PoseRefineNet(num_obj=21)
     est = PoseEstimator(posenet, refiner, posenet_state, refiner_state,
                         num_points=1000, crop_size=192, refine_iters=2)
-    poses = est.estimate_frame(rgb, depth, label, YCB_CAM_1)
 """
 
 from __future__ import annotations
@@ -45,6 +51,31 @@ class PoseEstimator:
                                           refine_iters=refine_iters,
                                           device=device)
         self.rng = np.random.default_rng(seed)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, num_obj: int, num_points: int = 500,
+                        crop_size: int = 192, refine_iters: int | None = None,
+                        **kwargs) -> "PoseEstimator":
+        """An estimator from a checkpoint directory of either package
+        (parameters only: ``restore_opt=False``), with the checkpoint's
+        decoder (``decoder_flags()`` of its config). ``refine_iters=None``
+        takes the checkpoint's trained depth (2 when it has no config); an
+        untrained refiner clamps it to 0 with a warning
+        (``clamp_refine_iters``)."""
+        from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+        from densefusion_tpu_torch.train.checkpoint import (
+            clamp_refine_iters, load_state_dicts, peek_config,
+        )
+
+        ck_cfg = peek_config(path)
+        if refine_iters is None:
+            refine_iters = getattr(ck_cfg, "refine_iters", None) or 2
+        refine_iters = clamp_refine_iters(path, refine_iters)
+        flags = ck_cfg.decoder_flags() if ck_cfg is not None else {}
+        posenet_state, refiner_state = load_state_dicts(path)
+        return cls(PoseNet(num_obj, **flags), PoseRefineNet(num_obj),
+                   posenet_state, refiner_state, num_points=num_points,
+                   crop_size=crop_size, refine_iters=refine_iters, **kwargs)
 
     # -- host-side assembly ----------------------------------------------
 

@@ -13,7 +13,10 @@ refiner applied to detached inputs), then one Adam step on the refiner.
 A step takes a batch of tensors on the training device
 (:func:`densefusion_tpu_torch.data.to_device`) and the confidence weight
 ``w``, updates the :class:`TrainState` in place and returns metrics that
-stay on the device: nothing in a step waits for the card.
+stay on the device: nothing in a step waits for the card. With
+``grad_accum=k > 1`` a step is a micro-step: it folds its gradient into a
+:class:`~densefusion_tpu_torch.train.state.GradAccum` and every k-th one
+applies their mean, as ``optax.MultiSteps`` does in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ from __future__ import annotations
 import torch
 
 from densefusion_tpu_torch.losses import pose_loss, refiner_loss
-from densefusion_tpu_torch.train.state import TrainState, make_optimizer
+from densefusion_tpu_torch.train.state import (
+    GradAccum, TrainState, make_optimizer,
+)
 
 
 def _unpack(batch):
@@ -34,20 +39,33 @@ def _valid_mean(dis: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return (dis * valid).sum() / valid.sum().clamp_min(1.0)
 
 
-def _reset_optimizer(state: TrainState, module):
+def _reset_optimizer(state: TrainState, module, grad_accum: int):
     """A fresh Adam over ``module`` at the current learning rate (the JAX
-    trainer's ``reset_opt`` on a phase switch); it becomes
-    ``state.optimizer`` and is returned for the step to own."""
+    trainer's ``reset_opt`` on a phase switch), and a fresh accumulator when
+    ``grad_accum > 1``; the Adam becomes ``state.optimizer`` and is returned
+    for the step to own."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     lr = state.optimizer.param_groups[0]["lr"]
     state.optimizer = make_optimizer(module.parameters(), lr)
+    state.accum = (GradAccum(module.parameters(), grad_accum)
+                   if grad_accum > 1 else None)
     return state.optimizer
 
 
-def make_pose_train_step(state: TrainState, use_adds: bool = True):
+def _apply(state: TrainState, optimizer) -> None:
+    if state.accum is None:
+        optimizer.step()
+    else:
+        state.accum.step(optimizer)
+
+
+def make_pose_train_step(state: TrainState, use_adds: bool = True,
+                         grad_accum: int = 1):
     """Phase-1 step ``step(batch, w) -> {"loss", "dis"}`` over a fresh Adam
     of the PoseNet. ``use_adds=False`` skips the ADD-S branch (datasets
     with no symmetric object)."""
-    optimizer = _reset_optimizer(state, state.posenet)
+    optimizer = _reset_optimizer(state, state.posenet, grad_accum)
 
     def step(batch, w):
         img, points, choose, obj, target, model_points, sym, valid = \
@@ -60,7 +78,7 @@ def make_pose_train_step(state: TrainState, use_adds: bool = True):
                        sample_weight=valid, pred_c_logit=out["pred_c_logit"])
         optimizer.zero_grad(set_to_none=True)
         lo.loss.backward()
-        optimizer.step()
+        _apply(state, optimizer)
         state.step += 1
         return {"loss": lo.loss.detach(),
                 "dis": _valid_mean(lo.dis.detach(), valid)}
@@ -68,11 +86,12 @@ def make_pose_train_step(state: TrainState, use_adds: bool = True):
     return step
 
 
-def make_refine_train_step(state: TrainState, refine_iters: int):
+def make_refine_train_step(state: TrainState, refine_iters: int,
+                           grad_accum: int = 1):
     """Phase-2 step ``step(batch, w) -> {"loss", "dis"}``: frozen PoseNet,
     ``refine_iters`` refiner iterations with summed losses, one Adam step
     over a fresh optimizer of the refiner (the phase switch resets it)."""
-    optimizer = _reset_optimizer(state, state.refiner)
+    optimizer = _reset_optimizer(state, state.refiner, grad_accum)
 
     def step(batch, w):
         img, points, choose, obj, target, model_points, sym, valid = \
@@ -97,7 +116,7 @@ def make_refine_train_step(state: TrainState, refine_iters: int):
             pts, tgt, last_dis = rl.new_points, rl.new_target, rl.dis
         optimizer.zero_grad(set_to_none=True)
         total.backward()
-        optimizer.step()
+        _apply(state, optimizer)
         state.step += 1
         return {"loss": total.detach(),
                 "dis": _valid_mean(last_dis.detach(), valid)}

@@ -104,9 +104,19 @@ DATASET_PRESETS: dict[str, dict] = {
 }
 
 
-def check_ported(cfg: RunConfig) -> None:
+KNN_BACKENDS = ("auto", "pallas", "xla")
+
+
+def check_ported(cfg: RunConfig, device=None) -> None:
     """Raise ``NotImplementedError`` for a field value whose option the port
-    does not run yet, naming the ROADMAP.md section that queues it."""
+    does not run yet, naming the ROADMAP.md section that queues it.
+
+    ``knn_backend`` keeps its JAX meaning as far as the port has one: on the
+    CPU every value runs the plain versions (the JAX test configs use
+    ``"xla"``); on CUDA (``device`` None or a CUDA device) ``"auto"`` and
+    ``"pallas"`` run the Hopper kernels, and ``"xla"``, which asks for the
+    plain path on the accelerator, is refused: a wrapper takes its plain
+    version only for CPU tensors."""
     if cfg.bf16_compute:
         raise NotImplementedError(
             "bf16_compute=True is not ported yet (ROADMAP.md §1 E); the "
@@ -114,7 +124,12 @@ def check_ported(cfg: RunConfig) -> None:
     if cfg.remat_cnn:
         raise NotImplementedError(
             "remat_cnn=True is not ported yet (ROADMAP.md §1 E)")
-    if cfg.grad_accum != 1:
+    if cfg.knn_backend not in KNN_BACKENDS:
+        raise ValueError(f"unknown knn_backend {cfg.knn_backend!r} "
+                         f"(expected one of {KNN_BACKENDS})")
+    on_cuda = device is None or str(device).startswith("cuda")
+    if on_cuda and cfg.knn_backend == "xla":
         raise NotImplementedError(
-            f"grad_accum={cfg.grad_accum} is not ported yet (ROADMAP.md "
-            "§1 B); use grad_accum=1")
+            "knn_backend='xla' (the plain search on the accelerator) has no "
+            "counterpart on CUDA, where the port runs its kernels (ROADMAP.md "
+            "Rules of the port); use 'auto', or device='cpu'")

@@ -16,7 +16,6 @@ between the card and the CPU.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import sys
 from pathlib import Path
@@ -29,58 +28,8 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from densefusion_tpu_torch import compat  # noqa: E402
-from densefusion_tpu_torch.geometry import (  # noqa: E402
-    quat_normalize, quat_to_matrix,
-)
-from densefusion_tpu_torch.losses import pose_loss  # noqa: E402
-from densefusion_tpu_torch.models import PoseNet  # noqa: E402
 from densefusion_tpu_torch.ops import add_dist  # noqa: E402
 from densefusion_tpu_torch.ops.knn import _nearest  # noqa: E402
-
-
-@contextlib.contextmanager
-def float64_casts():
-    """The port casts to float32 in a few places (heads, embedding, the
-    distance op); for the float64 reference those casts keep float64."""
-    keep = torch.Tensor.float
-    torch.Tensor.float = lambda self: self.double()
-    try:
-        yield
-    finally:
-        torch.Tensor.float = keep
-
-
-def phase1(state, batch, dev, dtype, use_adds=True):
-    """(loss, {name: grad float64 on the CPU}, R, t of row 0)."""
-    pose = PoseNet(cs.NUM_OBJ)
-    pose.load_state_dict(state)
-    pose = pose.to(dev, dtype).eval()
-    b = type(batch)(*(x.to(dev, dtype) if x.is_floating_point()
-                      else x.to(dev) for x in batch))
-    ctx = float64_casts() if dtype == torch.float64 else \
-        contextlib.nullcontext()
-    with ctx:
-        out = pose(b.img, b.points, b.choose, b.obj_idx)
-        lo = pose_loss(out["pred_r"], out["pred_t"], out["pred_c"],
-                       b.target, b.model_points, b.points, b.sym, cs.W,
-                       use_adds=use_adds, sample_weight=b.valid.to(dtype),
-                       pred_c_logit=out["pred_c_logit"])
-        lo.loss.backward()
-    grads = {k: p.grad.detach().double().cpu()
-             for k, p in pose.named_parameters()}
-    with torch.no_grad():
-        R = quat_to_matrix(quat_normalize(out["pred_r"][:1].float()))
-        t = (b.points + out["pred_t"])[:1].float()
-    return float(lo.loss.detach()), grads, R, t
-
-
-def worst(got: dict, want: dict) -> dict:
-    """The parameter with the largest max|diff| / max|grad|."""
-    errs = [(float((got[k] - want[k]).abs().max())
-             / float(want[k].abs().max()), k)
-            for k in want if float(want[k].abs().max()) > 0]
-    e, k = max(errs)
-    return {"max_rel_to_max": e, "param": k}
 
 
 def main() -> None:
@@ -94,24 +43,26 @@ def main() -> None:
     cs.check_kernels(knn, rng)
     seeded = compat.posenet_state_dict_from_flax(
         cs.seeded_params(cs.posenet_param_shapes(cs.NUM_OBJ), rng))
-    state, _, _ = cs.train_path(add_dist, np.random.default_rng(cs.SEED + 2))
+    from densefusion_tpu_torch.ops import phase_conv
+    state = cs.train_path(add_dist, phase_conv,
+                          np.random.default_rng(cs.SEED + 2))[0]
     trained = {k: v.detach().cpu()
                for k, v in state.posenet.state_dict().items()}
     batch = cs.train_batch(np.random.default_rng(cs.SEED + 3), 4,
                            cs.NUM_MESH, "cpu")
     result = {"card": cs.card_line()}
     for name, weights in (("seeded", seeded), ("trained", trained)):
-        ref = phase1(weights, batch, "cpu", torch.float64)
-        card = phase1(weights, batch, "cuda", torch.float32)
-        cpu = phase1(weights, batch, "cpu", torch.float32)
-        row = {"card_vs_f64": worst(card[1], ref[1]),
-               "cpu_vs_f64": worst(cpu[1], ref[1]),
-               "card_vs_cpu": worst(card[1], cpu[1]),
+        ref = cs.phase1(weights, batch, "cpu", torch.float64)
+        card = cs.phase1(weights, batch, "cuda", torch.float32)
+        cpu = cs.phase1(weights, batch, "cpu", torch.float32)
+        row = {"card_vs_f64": cs.worst(card[1], ref[1]),
+               "cpu_vs_f64": cs.worst(cpu[1], ref[1]),
+               "card_vs_cpu": cs.worst(card[1], cpu[1]),
                "loss_rel_card_vs_cpu": abs(card[0] - cpu[0]) / abs(cpu[0])}
         if name == "seeded":
-            row["card_vs_cpu_adds_off"] = worst(
-                phase1(weights, batch, "cuda", torch.float32, False)[1],
-                phase1(weights, batch, "cpu", torch.float32, False)[1])
+            row["card_vs_cpu_adds_off"] = cs.worst(
+                cs.phase1(weights, batch, "cuda", torch.float32, False)[1],
+                cs.phase1(weights, batch, "cpu", torch.float32, False)[1])
             picks = []
             for _, _, R, t in (card, cpu):
                 q = add_dist._transform(R.cpu(), t.cpu(),

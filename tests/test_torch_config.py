@@ -63,12 +63,25 @@ def test_jax_config_json_loads_and_round_trips():
 @pytest.mark.parametrize("field,value,section", [
     ("bf16_compute", True, "§1 E"),
     ("remat_cnn", True, "§1 E"),
-    ("grad_accum", 4, "§1 B"),
+    ("knn_backend", "xla", "Rules of the port"),
 ])
 def test_unported_options_raise(field, value, section):
     check_ported(RunConfig.preset("ycb"))
     with pytest.raises(NotImplementedError, match=section):
         check_ported(RunConfig(**{field: value}))
+
+
+def test_ported_options_pass():
+    """``grad_accum`` runs (optax.MultiSteps' counterpart); every
+    ``knn_backend`` runs the plain versions on the CPU, and the kernels'
+    two on CUDA; an unknown backend is an error."""
+    check_ported(RunConfig(grad_accum=4))
+    for backend in ("auto", "pallas", "xla"):
+        check_ported(RunConfig(knn_backend=backend), device="cpu")
+    for backend in ("auto", "pallas"):
+        check_ported(RunConfig(knn_backend=backend), device="cuda:0")
+    with pytest.raises(ValueError, match="knn_backend"):
+        check_ported(RunConfig(knn_backend="faiss"), device="cpu")
 
 
 def test_logger_and_metrics_writer(tmp_path, capsys):
