@@ -96,6 +96,25 @@ fails. Phases, in order:
    ``cli.eval_linemod`` on its checkpoint with native crops off and on:
    ``result.json`` with rates in [0, 1], the launches of kernels 5 and 6
    in each evaluation;
+   4i. YCB keyframe evaluation: a root of its own (12 keyframes of 6 of
+   the 21 objects, fake PoseCNN results), 4g's ``checkpoint_best_refine``
+   through ``cli.eval_ycb`` by frame, by detection and with native crops,
+   then a ``--skip_done`` rerun of the frame route: kernel 6 three times
+   per PoseNet forward (counted apart), no remap (scoring is on the host),
+   no forward in the rerun and the same ``metrics.json``; the native-crop
+   route once more on a copy of that checkpoint under the dense
+   align-corners decoder (``decoder="torch"``, chosen by ``--native_crops
+   auto``), where kernel 6 must launch 0 times; each run's stages timed
+   apart (set-up, inference loop, model clouds, scoring); frame and
+   detection poses within 1e-4; ``cli.score_ycb`` gives ``metrics.json``'s
+   table exactly; ``cli.visualize`` on 4 frames; the benchmark's
+   ``inference`` (B=16) and ``latency`` (B=1, K=2);
+   4j. CAD: a synthetic customCAD root at the Unity frame size (520x1109),
+   two epochs of ``cli.train --dataset cad`` (N=500, 192 px, B=8) through
+   both gates, each epoch's launches of kernels 1, 2 and 6 (kernel 2 never
+   in phase 1: no symmetric class; in phase 2 with every row gated off),
+   ``cli.eval_cad`` (one remap and three kernel-6 launches per frame) and
+   ``cli.inspect_sample --dataset cad``;
 5. the same B=8 batch on the card and on the CPU, with TF32 off, must agree,
    under each of the three decoders;
    5b. one phase-1 and one phase-2 loss and gradient at B=4, dropout off,
@@ -116,7 +135,8 @@ fails. Phases, in order:
    ring (fork workers) samples/s at B=32, and loader-fed phase-1 steps/s
    beside the device-only rate and the input-bound fraction
    (``cli/benchmark.py`` ``bench_loader`` / ``bench_train_e2e``); kernel 6
-   and ``F.conv2d`` also at the training batch (B=32); the train-step
+   and ``F.conv2d`` also at the training batch (B=32), the training CLI's
+   (B=16) and eval_ycb's largest frame bucket (B=8); the train-step
    benchmarks ``cli/benchmark.py --what train`` and ``--what refine`` at
    their defaults (B=8);
 7. a JSON line listing every ported kernel (``kernels``), with its launch
@@ -131,6 +151,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -156,6 +177,13 @@ CLI_BATCH = 16
 # the LineMOD evaluation path: ape, eggbox and glue (the symmetric two),
 # training frames per object, batch
 LM_OBJECTS, LM_TRAIN, LM_BATCH = (1, 10, 11), 8, 8
+# the YCB keyframe evaluation: keyframes of its own root (the 21 classes of
+# the 4f root, its models), objects rendered per keyframe (YCB-Video's
+# keyframes hold 3-6), and the frames the overlay renderer draws
+YCB_KEYFRAMES, YCB_OBJS, VIS_FRAMES = 12, 6, 4
+# the CAD path: Unity frame size, training and test frames (the test split
+# keeps every tenth), batch
+CAD_DIMS, CAD_TRAIN, CAD_TEST, CAD_BATCH = (520, 1109), 16, 30, 8
 # the KNN benchmark's shape (densefusion_tpu_torch/cli/benchmark.py)
 KNN_QUERIES, KNN_REFS = 250_000, 500
 SEED = 0
@@ -1260,16 +1288,20 @@ def counted_epochs(kernels: dict):
             setattr(loop.Trainer, f"{kind}_epoch", fn)
 
 
-def _check_epoch_launches(records: list, label: str) -> None:
-    """Every kernel of the path launched in every train epoch; kernel 6
-    three times per step (the PoseNet forward)."""
+def _check_epoch_launches(records: list, label: str,
+                          absent: tuple = ()) -> None:
+    """Every kernel of the path launched in every train epoch, but those in
+    ``absent`` (a path without symmetric rows never launches the ADD-S
+    kernel), which launched no time; kernel 6 three times per step (the
+    PoseNet forward)."""
     for r in records:
         log(f"[{label}] epoch {r['epoch']} ({r['phase']}): "
             f"{r['seconds']:.2f} s, avg_dis {r['value']:.5f}, launches "
             f"{r['launches']}")
-        if any(n == 0 for n in r["launches"].values()):
-            raise AssertionError(f"[{label}] epoch {r['epoch']}: a kernel of "
-                                 f"the path never launched: {r['launches']}")
+        if any((n == 0) != (k in absent) for k, n in r["launches"].items()):
+            raise AssertionError(f"[{label}] epoch {r['epoch']}: launches "
+                                 f"{r['launches']}, want 0 exactly for "
+                                 f"{absent}")
         if r["launches"]["phase_conv"] % 3:
             raise AssertionError(f"[{label}] epoch {r['epoch']}: kernel 6 "
                                  f"launched {r['launches']['phase_conv']} "
@@ -1521,6 +1553,306 @@ def linemod_eval_path(kernels: dict, root: str, out: str) -> dict:
             f"{launches}")
     return {"generate_s": gen_s, "train_epoch": rec["train"][0]["launches"],
             "eval": results}
+
+
+@contextlib.contextmanager
+def counted_forwards():
+    """Count PoseNet forwards (calls of ``PoseNet.forward``) while active:
+    yields ``{"n": count}``."""
+    from densefusion_tpu_torch.models import PoseNet
+
+    count = {"n": 0}
+    original = PoseNet.forward
+
+    def forward(self, *args, **kwargs):
+        count["n"] += 1
+        return original(self, *args, **kwargs)
+
+    PoseNet.forward = forward
+    try:
+        yield count
+    finally:
+        PoseNet.forward = original
+
+
+def _fmt(x) -> str:
+    return "n/a" if x is None else f"{x:.2f}"
+
+
+def _mat_poses(out: str, method: str, frame: int) -> np.ndarray:
+    import scipy.io as scio
+    return np.asarray(scio.loadmat(os.path.join(
+        out, method, f"{frame:04d}.mat"))["poses"], np.float64)
+
+
+def ycb_eval_path(kernels: dict, ck: str, root: str, out: str,
+                  card: str) -> dict:
+    """Phase 4i: YCB keyframe evaluation of 4g's ``checkpoint_best_refine``
+    at the YCB width (21 classes, N=1000, 192 px) on a root of its own
+    (``YCB_KEYFRAMES`` keyframes of ``YCB_OBJS`` objects, fake PoseCNN
+    results). ``cli.eval_ycb`` through its three routes, then a
+    ``--skip_done`` rerun of the frame route, each with the kernels'
+    launches and the PoseNet forwards reset before and read after: kernel 6
+    three times per forward under the fused decoder, the remap never (the
+    toolbox scores on the host); the rerun runs no forward and writes the
+    same ``metrics.json``; the native-crop route on a copy of the
+    checkpoint under the dense align-corners decoder (``--native_crops
+    auto``) launches kernel 6 no time. Each run's stages are timed apart
+    (``eval_ycb.main(timings=)``): the rates are the inference loop's,
+    not the set-up's. The frame and detection
+    routes' poses agree within 1e-4; ``cli.score_ycb`` on the frame route's
+    results gives ``metrics.json``'s table exactly. Then ``cli.visualize``
+    on ``VIS_FRAMES`` frames of the root, and the benchmark's ``inference``
+    (B=16) and ``latency`` (B=1, K=2)."""
+    from densefusion_tpu_torch.cli import eval_ycb, score_ycb, visualize
+    from densefusion_tpu_torch.cli.benchmark import (
+        bench_inference, bench_latency,
+    )
+    from densefusion_tpu_torch.data import generate_ycb_style_dataset
+    from densefusion_tpu_torch.train.checkpoint import peek_config
+
+    # the same weights under the dense align-corners decoder: no kernel 6
+    ck_dense = os.path.join(out, "checkpoint_dense")
+    shutil.copytree(ck, ck_dense)
+    with open(os.path.join(ck_dense, "config.json"), "w") as f:
+        f.write(dataclasses.replace(peek_config(ck), decoder="torch")
+                .to_json())
+    posecnn = root + "_posecnn"
+    t0 = time.perf_counter()
+    generate_ycb_style_dataset(root, n_classes=NUM_OBJ, n_real=0, n_syn=0,
+                               n_test=YCB_KEYFRAMES, seed=SEED,
+                               posecnn_dir=posecnn, objs_per_frame=YCB_OBJS)
+    gen_s = time.perf_counter() - t0
+    fused = peek_config(ck).decoder_flags()["fused_decoder"]
+    args = ["--dataset_root", root, "--posecnn_results", posecnn,
+            "--num_keyframes", str(YCB_KEYFRAMES)]
+    methods = ("Densefusion_wo_refine_result", "Densefusion_iterative_result")
+    routes = {"frame": (ck, ["--dispatch", "frame"]),
+              "skip_done": (ck, ["--dispatch", "frame", "--skip_done"]),
+              "detection": (ck, ["--dispatch", "detection"]),
+              "native": (ck, ["--native_crops", "on"]),
+              "native_dense": (ck_dense, ["--native_crops", "auto"])}
+    results = {}
+    for name, (ck_route, extra) in routes.items():
+        out_dir = os.path.join(out, "frame" if name == "skip_done" else name)
+        for k in kernels.values():
+            k.launches = 0
+        stages = {}
+        with counted_forwards() as fw:
+            t0 = time.perf_counter()
+            summary = eval_ycb.main([*args, "--checkpoint", ck_route,
+                                     "--output_dir", out_dir, *extra],
+                                    timings=stages)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        with open(os.path.join(out_dir, "metrics.json")) as f:
+            metrics_text = f.read()
+        rows = summary["methods"]["iterative"]["all"]
+        if not (0.0 <= summary["adds_auc"] <= 100.0
+                and rows["total"] > 0 and rows["detected"] > 0
+                and summary["native_crops"] == name.startswith("native")):
+            raise AssertionError(f"[4i] {name}: metrics {summary}")
+        want = 3 * fw["n"] if fused and name != "native_dense" else 0
+        if name == "skip_done":
+            if fw["n"] or any(launches.values()) \
+                    or metrics_text != results["frame"]["metrics_text"]:
+                raise AssertionError(
+                    f"[4i] the --skip_done rerun ran {fw['n']} forwards, "
+                    f"launches {launches}, or changed metrics.json")
+        elif fw["n"] == 0 or launches["phase_conv"] != want \
+                or launches["adds_remap"] != 0:
+            raise AssertionError(
+                f"[4i] {name}: {fw['n']} PoseNet forwards, launches "
+                f"{launches}; want kernel 6 at {want} (3 per forward under "
+                f"the fused decoder, 0 under the dense one) and no remap")
+        infer_s = stages["infer_s"]
+        # keyframes/s of the inference loop (none in the rerun), and without
+        # its first keyframe (each batch shape's first call)
+        rate = YCB_KEYFRAMES / infer_s if fw["n"] else None
+        steady = ((YCB_KEYFRAMES - 1) / (infer_s - stages["first_keyframe_s"])
+                  if fw["n"] and "first_keyframe_s" in stages else None)
+        results[name] = {"seconds": seconds, "forwards": fw["n"],
+                         "launches": launches, "stages": stages,
+                         "infer_keyframes_per_s": rate,
+                         "steady_keyframes_per_s": steady,
+                         "score_s_per_keyframe":
+                             stages["score_s"] / YCB_KEYFRAMES,
+                         "adds_auc": summary["adds_auc"],
+                         "add_auc": summary["add_auc"],
+                         "adds_under_2cm": summary["adds_under_2cm"],
+                         "per_pixel_adds_auc":
+                             summary["methods"]["per-pixel"]["all"][
+                                 "adds_auc"],
+                         "rows": rows["total"],
+                         "iterations": summary["refine_iterations"],
+                         "metrics_text": metrics_text}
+        log(f"[4i] eval_ycb {name}: {YCB_KEYFRAMES} keyframes, "
+            f"{rows['total']} gt objects, --iterations "
+            f"{summary['refine_iterations']}: {seconds:.3f} s in all = "
+            f"set-up {stages['setup_s']:.3f} + inference loop "
+            f"{infer_s:.3f} ({_fmt(rate)} keyframes/s; without the first "
+            f"keyframe {_fmt(steady)}) + model "
+            f"clouds {stages['models_s']:.3f} + scoring "
+            f"{stages['score_s']:.3f} "
+            f"({stages['score_s'] / YCB_KEYFRAMES:.4f} s per keyframe); "
+            f"{fw['n']} PoseNet forwards, launches {launches}; "
+            f"ADD-S AUC {summary['adds_auc']:.2f} (per-pixel "
+            f"{results[name]['per_pixel_adds_auc']:.2f}), ADD AUC "
+            f"{summary['add_auc']:.2f}; card {card}")
+    worst = 0.0
+    for method in methods:
+        for f in range(YCB_KEYFRAMES):
+            a = _mat_poses(os.path.join(out, "frame"), method, f)
+            b = _mat_poses(os.path.join(out, "detection"), method, f)
+            if a.shape != b.shape:
+                raise AssertionError(f"[4i] keyframe {f}: {a.shape} vs "
+                                     f"{b.shape} poses")
+            worst = max(worst, float(np.abs(a - b).max()) if a.size else 0.0)
+    if worst > 1e-4:
+        raise AssertionError(f"[4i] frame and detection routes' poses "
+                             f"differ by {worst}")
+    frame_dir = os.path.join(out, "frame")
+    t0 = time.perf_counter()
+    table = score_ycb.main([
+        "--dataset_root", root, "--posecnn_results", posecnn,
+        "--results", f"per-pixel={frame_dir}/{methods[0]}",
+        "--results", f"iterative={frame_dir}/{methods[1]}",
+        "--num_keyframes", str(YCB_KEYFRAMES),
+        "--output_dir", os.path.join(out, "score")])
+    score_s = time.perf_counter() - t0
+    if json.loads(json.dumps(table)) != \
+            json.loads(results["frame"]["metrics_text"])["methods"]:
+        raise AssertionError("[4i] score_ycb's table differs from "
+                             "metrics.json's")
+    log(f"[4i] frame vs detection poses: max diff {worst:.3g}; score_ycb "
+        f"reproduces metrics.json's table exactly in {score_s:.3f} s (the "
+        f"model clouds' loads included, 2 methods)")
+
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    written = visualize.main([
+        "--dataset", "ycb", "--dataset_root", root, "--checkpoint", ck,
+        "--frames", str(VIS_FRAMES), "--num_points", str(NUM_POINTS),
+        "--output_dir", os.path.join(out, "vis")])
+    vis_s = time.perf_counter() - t0
+    vis_launches = {n: k.launches for n, k in kernels.items()}
+    if not (0 < len(written) <= VIS_FRAMES
+            and all(os.path.getsize(p) > 0 for p in written)
+            and vis_launches["phase_conv"] == (3 if fused else 0)):
+        raise AssertionError(f"[4i] visualize wrote {written}, launches "
+                             f"{vis_launches}")
+    log(f"[4i] visualize: {len(written)} overlays in {vis_s:.2f} s, "
+        f"launches {vis_launches}")
+
+    for k in kernels.values():
+        k.launches = 0
+    inference = bench_inference(batch=16)
+    latency = bench_latency()
+    bench_launches = kernels["phase_conv"].launches
+    for name, value in (("inference_fps", inference["inference_fps"]),
+                        ("latency_ms_median", latency["latency_ms_median"])):
+        if not (np.isfinite(value) and value > 0):
+            raise AssertionError(f"[4i] {name} {value}")
+    log(f"[4i] benchmark --what inference (B=16, K=2, f32): "
+        f"{inference['inference_ms_per_batch']:.3f} ms per batch, "
+        f"{inference['inference_fps']:.1f} frames/s; --what latency (B=1, "
+        f"K=2, f32): median {latency['latency_ms_median']:.3f} ms, p90 "
+        f"{latency['latency_ms_p90']:.3f} ms (latency_vs_paper_frame "
+        f"{latency['latency_vs_paper_frame']:.2f}: the paper's 0.06 s on "
+        f"its GPU over the median); kernel 6 launches {bench_launches}; "
+        f"card {card}")
+    for r in results.values():
+        r.pop("metrics_text")
+    return {"generate_s": gen_s, "routes": results,
+            "frame_vs_detection_max_diff": worst, "score_ycb_s": score_s,
+            "visualize": {"frames": len(written), "seconds": vis_s,
+                          "launches": vis_launches},
+            "inference": inference, "latency": latency,
+            "bench_launches": bench_launches}
+
+
+def cad_path(kernels: dict, root: str, out: str, card: str) -> dict:
+    """Phase 4j: a synthetic customCAD root at the Unity frame size, two
+    epochs of ``cli.train --dataset cad`` at the CAD preset's width (N=500,
+    192 px, one object, B=8) with both gates after the first, each epoch's
+    launches of kernels 1, 2 and 6 counted (kernel 2 never in phase 1: CAD
+    has no symmetric class; in phase 2 once per refiner iteration with
+    every row gated off, as the JAX refine step runs it); ``cli.eval_cad`` on ``checkpoint_best_refine`` with
+    the launches of kernels 5 and 6 (one remap and three kernel-6 launches
+    per frame); ``cli.inspect_sample --dataset cad``."""
+    from densefusion_tpu_torch.cli import eval_cad, inspect_sample
+    from densefusion_tpu_torch.cli import train as train_cli
+    from densefusion_tpu_torch.data import generate_cad_style_dataset
+
+    t0 = time.perf_counter()
+    generate_cad_style_dataset(root, n_train=CAD_TRAIN, n_test=CAD_TEST,
+                               img_h=CAD_DIMS[0], img_w=CAD_DIMS[1],
+                               seed=SEED)
+    gen_s = time.perf_counter() - t0
+    train_kernels = {k: kernels[k] for k in ("add_dist_paired",
+                                             "add_dist_min", "phase_conv")}
+    logs = os.path.join(out, "logs")
+    with counted_epochs(train_kernels) as rec:
+        trainer = train_cli.main([
+            "--dataset", "cad", "--dataset_root", root, "--objlist", "1",
+            "--nepoch", "2", "--batch_size", str(CAD_BATCH), "--workers",
+            str(DATA_WORKERS), "--decay_margin", "1e9", "--refine_margin",
+            "1e9", "--out_dir", out, "--log_dir", logs])
+    cur, cfg = trainer.curriculum, trainer.cfg
+    if not (cur.epoch == 3 and cur.decay_started and cur.refine_started
+            and cur.refine_steps > 0
+            and (cfg.num_points, cfg.crop_size, cfg.num_objects)
+            == (500, CROP, 1)
+            and [r["phase"] for r in rec["train"]] == ["pose", "refine"]):
+        raise AssertionError(f"[4j] curriculum after two epochs: {cur}")
+    # phase 1 skips the ADD-S branch (no symmetric class); the refiner's
+    # loss keeps it, as the JAX refine step does, with every row gated off
+    _check_epoch_launches(rec["train"][:1], "4j", absent=("add_dist_min",))
+    _check_epoch_launches(rec["train"][1:], "4j")
+    metrics = _train_metrics(os.path.join(logs, "cad"))
+    epochs = [{"epoch": m["epoch"], "phase": m["phase"],
+               "seconds": m["seconds"], "steps": m["steps"],
+               "input_bound_fraction": m["input_wait_s"] / m["seconds"],
+               "launches": r["launches"]}
+              for m, r in zip(metrics, rec["train"])]
+
+    eval_kernels = {k: kernels[k] for k in ("adds_remap", "phase_conv")}
+    for k in eval_kernels.values():
+        k.launches = 0
+    eval_dir = os.path.join(out, "eval")
+    t0 = time.perf_counter()
+    rate = eval_cad.main([
+        "--dataset_root", root, "--checkpoint",
+        os.path.join(out, "cad", "checkpoint_best_refine"),
+        "--output_dir", eval_dir])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in eval_kernels.items()}
+    with open(os.path.join(eval_dir, "eval_log.txt")) as f:
+        frames = sum(" dis " in line for line in f)
+    if not (0.0 <= rate <= 1.0 and frames == CAD_TEST // 10
+            and launches == {"adds_remap": frames,
+                             "phase_conv": 3 * frames}
+            and os.path.exists(os.path.join(eval_dir, "pred_pcld_0.ply"))):
+        raise AssertionError(f"[4j] eval_cad: rate {rate}, {frames} frames, "
+                             f"launches {launches}")
+    nn_mm = 1e3 * inspect_sample.main([
+        "--dataset", "cad", "--dataset_root", root, "--out_dir",
+        os.path.join(out, "inspect")])
+    if not nn_mm < 10.0:
+        raise AssertionError(f"[4j] inspect_sample: cloud to target "
+                             f"{nn_mm} mm")
+    log(f"[4j] CAD root ({CAD_TRAIN} + {CAD_TEST} frames at "
+        f"{CAD_DIMS[0]}x{CAD_DIMS[1]}) in {gen_s:.2f} s; eval_cad "
+        f"(--iterations 4, {frames} frames): success rate {rate:.3f} at "
+        f"0.01 m, {eval_s:.2f} s, launches {launches}; inspect_sample "
+        f"cloud to target {nn_mm:.2f} mm; card {card}")
+    return {"generate_s": gen_s, "epochs": epochs,
+            "eval": {"rate": rate, "frames": frames, "seconds": eval_s,
+                     "launches": launches},
+            "inspect_nn_mm": nn_mm}
 
 
 @contextlib.contextmanager
@@ -1983,6 +2315,35 @@ def run() -> None:
     log(f"[4h] LineMOD: train epoch launches {lm['train_epoch']}, "
         f"evaluation launches {path_launches['linemod_eval']}")
 
+    # 4i. YCB keyframe evaluation of 4g's checkpoint on a root of its own
+    # (launch counts and PoseNet forwards reset before each run)
+    ycb_dir = tempfile.mkdtemp(prefix="chip_smoke_ycbeval_")
+    atexit.register(shutil.rmtree, ycb_dir, True)
+    eval_kernels = {"adds_remap": knn.adds_remap_kernel,
+                    "phase_conv": phase_conv.phase_conv_kernel}
+    ycb = ycb_eval_path(eval_kernels,
+                        os.path.join(ck_out, "ycb", "checkpoint_best_refine"),
+                        os.path.join(ycb_dir, "root"),
+                        os.path.join(ycb_dir, "out"), card)
+    path_launches["ycb_eval"] = {
+        n: sum(r["launches"][n] for r in ycb["routes"].values())
+        + ycb["visualize"]["launches"][n] for n in eval_kernels}
+    log(f"[4i] YCB evaluation: launches over its routes and the overlays "
+        f"{path_launches['ycb_eval']}")
+
+    # 4j. CAD: two epochs of the training CLI, then the evaluation CLI
+    cad_dir = tempfile.mkdtemp(prefix="chip_smoke_cad_")
+    atexit.register(shutil.rmtree, cad_dir, True)
+    cad = cad_path({**train_kernels, **eval_kernels},
+                   os.path.join(cad_dir, "root"), os.path.join(cad_dir, "out"),
+                   card)
+    path_launches["cad_train"] = {
+        n: sum(e["launches"][n] for e in cad["epochs"]) for n in train_kernels}
+    path_launches["cad_eval"] = cad["eval"]["launches"]
+    log(f"[4j] CAD: train launches over two epochs "
+        f"{path_launches['cad_train']}, evaluation launches "
+        f"{path_launches['cad_eval']}")
+
     # 5. card vs CPU, TF32 off
     est_cpu = seeded_estimator(None, states, device="cpu")[0]
     agree = cpu_agreement(est, est_cpu, samples)
@@ -2243,6 +2604,10 @@ def run() -> None:
     gen = torch.Generator("cuda").manual_seed(SEED)
     conv_times = conv_timings(phase_conv, BATCH, gen, card)
     conv_times_b32 = conv_timings(phase_conv, TRAIN_BATCH, gen, card)
+    # and at the CLIs' batches: the training CLI's B=16 and eval_ycb's
+    # largest frame bucket, B=8
+    conv_times_small = {bsz: conv_timings(phase_conv, bsz, gen, card)
+                        for bsz in (CLI_BATCH, 8)}
     # the train-step benchmarks at their defaults (B=8, a quarter of the
     # rows symmetric; phase 2 at M=2600, K=2)
     from densefusion_tpu_torch.cli import benchmark
@@ -2338,6 +2703,8 @@ def run() -> None:
         "library_note": "F.conv2d on the same padded input, VALID, TF32 off",
         "shape": "up1 (B=64, 24x24, 1024 -> 1024)", "by_shape": conv_times,
         "by_shape_b32": conv_times_b32,
+        "by_shape_b16": conv_times_small[CLI_BATCH],
+        "by_shape_b8": conv_times_small[8],
         "parity": "ok", "build_s": build_s,
     })
     summary = {"pipeline_ms_b64": pipe_ms,
@@ -2350,7 +2717,8 @@ def run() -> None:
                "data_path": {k: data[k] for k in ("losses", "sym_rows",
                                                   "max_err", "generate_s")},
                "loader": loader_rates, "train_e2e": e2e,
-               "cli_train": cli, "linemod_eval": lm,
+               "cli_train": cli, "linemod_eval": lm, "ycb_eval": ycb,
+               "cad": cad,
                "bench_steps": bench_steps,
                "trained_grad_reading": trained_grads,
                "bench_knn": search["bench"],

@@ -1,11 +1,17 @@
-"""Command-line entry points of the port (each runs on the card unless given
-``--device cpu``):
+"""Command-line entry points of the port. Those that run a network run on
+the card unless given ``--device cpu``:
 
 * ``python -m densefusion_tpu_torch.cli.train``: the two-phase curriculum
-  trainer, writing checkpoints the JAX package loads (counterpart of
-  ``densefusion_tpu.cli.train``);
-* ``python -m densefusion_tpu_torch.cli.eval_linemod``: LineMOD evaluation of
-  a checkpoint of either package;
-* ``python -m densefusion_tpu_torch.cli.benchmark``: the 1-NN search, the
-  train steps of both phases, the loader and loader-fed training.
+  trainer (YCB, LineMOD or CAD), writing checkpoints the JAX package loads
+  (counterpart of ``densefusion_tpu.cli.train``);
+* ``python -m densefusion_tpu_torch.cli.eval_linemod``,
+  ``cli.eval_ycb`` and ``cli.eval_cad``: evaluation of a checkpoint of
+  either package; ``cli.score_ycb`` scores existing YCB result directories
+  (host only);
+* ``python -m densefusion_tpu_torch.cli.visualize``: pose overlays of a
+  checkpoint's estimates;
+* ``python -m densefusion_tpu_torch.cli.benchmark``: the 1-NN search,
+  batched and single-frame inference, the train steps of both phases, the
+  loader and loader-fed training;
+* ``cli.cad_prep`` and ``cli.inspect_sample``: dataset tools (host only).
 """

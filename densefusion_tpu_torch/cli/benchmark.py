@@ -1,12 +1,15 @@
-"""Benchmark CLI: the 1-NN search at the training ADD-S query count, the
-train steps of both phases, the host data plane, and loader-fed training.
+"""Benchmark CLI: the 1-NN search at the training ADD-S query count,
+batched and single-frame pose inference, the train steps of both phases,
+the host data plane, and loader-fed training.
 
 Counterpart of ``densefusion_tpu/cli/benchmark.py`` (``bench_knn``,
-``bench_train_step``, ``bench_refine_step``, ``bench_loader`` and
-``bench_train_e2e``: same shapes, seeds and keys). Runs on the card unless
-given ``--device cpu``::
+``bench_inference``, ``bench_latency``, ``bench_train_step``,
+``bench_refine_step``, ``bench_loader`` and ``bench_train_e2e``: same
+shapes and keys). Runs on the card unless given ``--device cpu``::
 
     python -m densefusion_tpu_torch.cli.benchmark --what knn
+    python -m densefusion_tpu_torch.cli.benchmark --what inference
+    python -m densefusion_tpu_torch.cli.benchmark --what latency
     python -m densefusion_tpu_torch.cli.benchmark --what train
     python -m densefusion_tpu_torch.cli.benchmark --what refine
     python -m densefusion_tpu_torch.cli.benchmark --what loader
@@ -17,6 +20,14 @@ Each prints one JSON object with the device it ran on.
 * ``knn``: ``knn_backend`` (``cuda``: the kernel of ``csrc/nn.cu``;
   ``plain``: its plain PyTorch version on the CPU), ``knn_us`` per search
   (host clock, each search ended by a sync), ``knn_pairs_per_s``.
+* ``inference``: PoseNet and K=2 refiner iterations at B=16 (``--batch``),
+  N=1000, 192 px, 21 objects, on inputs and weights drawn from seeded
+  generators: ms per batch (host clock, each batch ended by a read of its
+  poses), frames/s; float32.
+* ``latency``: the same at B=1, each request timed alone and ended by a
+  read of its pose: median and p90 ms, and ``latency_vs_paper_frame`` =
+  0.06 s (the paper's per-frame time, on its GPU) over the median. The JAX
+  benchmark runs bfloat16 on an accelerator; the port runs float32.
 * ``train``: the phase-1 step (forward, ADD-S loss, backward, Adam) at
   B=8, N=1000, M=500, 192 px, 21 objects, a quarter of the rows symmetric,
   on one seeded batch: ms per step (host clock, each step ended by a
@@ -77,6 +88,73 @@ def bench_knn(repeats: int = 50, device: str | torch.device | None = None,
             "knn_us": dt * 1e6, "knn_pairs_per_s": num_query * NUM_REF / dt,
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else "cpu")}
+
+
+def _pose_pipeline(batch: int, refine_iters: int, dev, obj_zero: bool):
+    """(pipeline, inputs) of the inference benchmarks: the YCB width, fresh
+    weights with the JAX package's initializers, inputs on the device; all
+    drawn from seeded generators on the CPU, so every device gets the same
+    values. ``obj_zero`` gives every row object 0 (the latency request)."""
+    from densefusion_tpu_torch.eval import InferencePipeline
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.models.init import (
+        init_posenet_, init_refiner_,
+    )
+
+    n, crop = 1000, 192
+    gen = torch.Generator().manual_seed(0)
+    img = torch.randn((batch, crop, crop, 3), generator=gen)
+    pts = torch.randn((batch, n, 3), generator=gen) * 0.05
+    choose = torch.randint(0, crop * crop, (batch, n), generator=gen)
+    obj = (torch.zeros((batch,), dtype=torch.int64) if obj_zero
+           else torch.randint(0, NUM_OBJ, (batch,), generator=gen))
+    posenet, refiner = PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ)
+    init_posenet_(posenet, gen)
+    init_refiner_(refiner, gen)
+    pipe = InferencePipeline(posenet, refiner, refine_iters=refine_iters,
+                             device=dev)
+    return pipe, tuple(x.to(dev) for x in (img, pts, choose, obj))
+
+
+def bench_inference(batch: int = 16, repeats: int = 20,
+                    device: str | torch.device | None = None) -> dict:
+    """Batched pose inference (PoseNet and 2 refiner iterations) at the YCB
+    width: ms per batch after one warm-up batch, each batch ended by a read
+    of its poses (the JAX benchmark's ``_sync``)."""
+    dev = resolve_device(device)
+    pipe, inputs = _pose_pipeline(batch, 2, dev, obj_zero=False)
+    pipe(*inputs)[0].cpu()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        pipe(*inputs)[0].cpu()
+    dt = (time.perf_counter() - t0) / repeats
+    return {"inference_batch": batch, "inference_ms_per_batch": dt * 1e3,
+            "inference_fps": batch / dt, "dtype": "float32",
+            "device": _device_name(dev)}
+
+
+def bench_latency(repeats: int = 50, refine_iters: int = 2,
+                  device: str | torch.device | None = None) -> dict:
+    """Single-frame (B=1) pose and refinement latency, each request timed
+    alone and ended by a read of its pose (no pipelining). Float32: the JAX
+    benchmark's bfloat16 is not ported yet. ``latency_vs_paper_frame``
+    divides the paper's 0.06 s per frame (its GPU, arXiv:1901.04780) by the
+    median: a yardstick, not a target measured on this card."""
+    dev = resolve_device(device)
+    pipe, inputs = _pose_pipeline(1, refine_iters, dev, obj_zero=True)
+    pipe(*inputs)[0].cpu()
+    lats = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        pipe(*inputs)[0].cpu()
+        lats.append(time.perf_counter() - t0)
+    lats.sort()
+    mid = lats[len(lats) // 2]
+    return {"latency_refine_iters": refine_iters,
+            "latency_ms_median": mid * 1e3,
+            "latency_ms_p90": lats[int(len(lats) * 0.9)] * 1e3,
+            "latency_vs_paper_frame": 0.06 / mid, "dtype": "float32",
+            "device": _device_name(dev)}
 
 
 def _step_batch(b: int, m: int, sym_fraction: float, dev):
@@ -302,7 +380,8 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--what", default="knn",
-                   choices=["knn", "train", "refine", "loader", "train_e2e"])
+                   choices=["knn", "inference", "latency", "train",
+                            "refine", "loader", "train_e2e"])
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     p.add_argument("--queries", type=int, default=NUM_QUERY,
@@ -310,7 +389,7 @@ def main(argv=None) -> dict:
     p.add_argument("--workers", type=int, default=4)
     p.add_argument("--batch", type=int, default=None,
                    help="batch size (default: 8 for train / refine, 16 for "
-                        "loader / train_e2e)")
+                        "inference / loader / train_e2e)")
     p.add_argument("--dataset_root", default=None,
                    help="loader / train_e2e: an existing YCB-format root "
                         "(default: generate a synthetic one)")
@@ -331,6 +410,10 @@ def main(argv=None) -> dict:
                    device=args.device)
     if args.what == "knn":
         results = bench_knn(device=args.device, num_query=args.queries)
+    elif args.what == "inference":
+        results = bench_inference(batch=args.batch or 16, device=args.device)
+    elif args.what == "latency":
+        results = bench_latency(device=args.device)
     elif args.what == "train":
         results = bench_train_step(batch=args.batch or 8, device=args.device)
     elif args.what == "refine":

@@ -61,9 +61,8 @@ def main(argv=None):
     from densefusion_tpu_torch.eval import (
         InferencePipeline, ShapeBucketedDispatcher, pose_distances,
     )
-    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
     from densefusion_tpu_torch.train.checkpoint import (
-        clamp_refine_iters, load_state_dicts, peek_config, refine_step_count,
+        clamp_refine_iters, load_models, peek_config, refine_step_count,
     )
     from densefusion_tpu_torch.utils.config import RunConfig
     from densefusion_tpu_torch.utils.logging import setup_logger
@@ -99,11 +98,7 @@ def main(argv=None):
     cfg = ck_cfg or RunConfig.preset("linemod")
     args.iterations = clamp_refine_iters(args.checkpoint, args.iterations,
                                          logger)
-    posenet_state, refiner_state = load_state_dicts(args.checkpoint)
-    posenet = PoseNet(num_obj, **cfg.decoder_flags())
-    refiner = PoseRefineNet(num_obj)
-    posenet.load_state_dict(posenet_state, strict=True)
-    refiner.load_state_dict(refiner_state, strict=True)
+    posenet, refiner = load_models(args.checkpoint, num_obj, cfg)
     # return_unrefined=True: the argmax-confidence hypothesis before
     # refinement and the refined pose from one pass, so per-pixel and
     # refined rates cost one forward

@@ -10,8 +10,8 @@ Example::
 Runs on the card unless given ``--device cpu``. Checkpoints go to
 ``<out_dir>/<dataset>/checkpoint_{best_pose,best_refine,current}`` in the JAX
 package's format. Options the port does not run yet (``--bf16``,
-``--remat_cnn``, ``--data_parallel``, ``--trace_dir``, ``--dataset cad``)
-raise ``NotImplementedError`` naming their ROADMAP.md section.
+``--remat_cnn``, ``--data_parallel``, ``--trace_dir``) raise
+``NotImplementedError`` naming their ROADMAP.md section.
 """
 
 from __future__ import annotations
@@ -90,10 +90,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--trace_dir is not ported yet (ROADMAP.md §1 G, "
             "utils/profiling.py)")
-    if args.dataset == "cad":
-        raise NotImplementedError(
-            "--dataset cad is not ported yet (ROADMAP.md §1 A2: the CAD "
-            "reader)")
 
     overrides = {}
     if args.repeat_epoch is not None:

@@ -1,5 +1,5 @@
 """Data plane (host-side numpy): the sample schema and its assembly, the
-LineMOD and YCB-Video readers, augmentation, the synthetic scene
+LineMOD, YCB-Video and customCAD readers, augmentation, the synthetic scene
 generators, and the batch loader. Batches go to the card through
 :func:`to_device`.
 
@@ -30,8 +30,10 @@ from densefusion_tpu_torch.data.linemod import (
 from densefusion_tpu_torch.data.ycb import (
     YCBDataset, YCBPoseCNNEvalDataset, YCB_SYM,
 )
+from densefusion_tpu_torch.data.cad import CADDataset, UnityDepthRayMap
 from densefusion_tpu_torch.data.loader import BatchLoader, PrefetchIterator
 from densefusion_tpu_torch.data.synthetic import (
+    delete_point_holes, generate_cad_style_dataset,
     generate_linemod_style_dataset, generate_ycb_style_dataset,
 )
 
@@ -42,6 +44,8 @@ __all__ = [
     "subsample_model_points", "read_ply_vertices", "write_ply",
     "LineModDataset", "LINEMOD_OBJLIST", "LINEMOD_SYM",
     "YCBDataset", "YCBPoseCNNEvalDataset", "YCB_SYM",
+    "CADDataset", "UnityDepthRayMap",
     "BatchLoader", "PrefetchIterator",
+    "delete_point_holes", "generate_cad_style_dataset",
     "generate_linemod_style_dataset", "generate_ycb_style_dataset",
 ]

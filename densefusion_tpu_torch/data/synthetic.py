@@ -1,11 +1,12 @@
-"""Synthetic LineMOD- and YCB-Video-format scene generators (counterpart of
-``densefusion_tpu/data/synthetic.py``; the CAD and FallingThings generators
-are not ported yet).
+"""Synthetic LineMOD-, YCB-Video- and customCAD-format scene generators
+(counterpart of ``densefusion_tpu/data/synthetic.py``; the FallingThings
+generator is not ported yet).
 
 A z-sorted point-splat renderer writes miniature datasets in the exact
 directory layouts the readers consume (rgb/depth/mask PNGs, ``gt.yml`` and
 ASCII PLY models for LineMOD; -color/-depth/-label PNGs, ``-meta.mat`` and
-``points.xyz`` for YCB), with exact ground truth, so tests, benchmarks and
+``points.xyz`` for YCB; Unity FrameBuffer/Depth/mask PNGs, ``proj_mat.txt``
+and ``transforms.txt`` for customCAD), with exact ground truth, so tests, benchmarks and
 examples need no download. One seed gives the same files as the JAX
 package's generators.
 """
@@ -17,6 +18,7 @@ import os
 import numpy as np
 
 from densefusion_tpu_torch.geometry.camera import LINEMOD_CAM, YCB_CAM_1
+from densefusion_tpu_torch.geometry.quaternion import unit_quat_matrix_np
 from densefusion_tpu_torch.data.ply import write_ply
 
 
@@ -184,15 +186,7 @@ def generate_linemod_style_dataset(
             # random pose, object kept in view
             q = rng.standard_normal(4)
             q /= np.linalg.norm(q)
-            w_, x_, y_, z_ = q
-            R = np.array([
-                [1 - 2 * (y_ * y_ + z_ * z_), 2 * (x_ * y_ - w_ * z_),
-                 2 * (w_ * y_ + x_ * z_)],
-                [2 * (x_ * y_ + w_ * z_), 1 - 2 * (x_ * x_ + z_ * z_),
-                 2 * (y_ * z_ - w_ * x_)],
-                [2 * (x_ * z_ - w_ * y_), 2 * (w_ * x_ + y_ * z_),
-                 1 - 2 * (x_ * x_ + y_ * y_)],
-            ])
+            R = unit_quat_matrix_np(*q)
             t = np.array([rng.uniform(-60, 60), rng.uniform(-40, 40),
                           rng.uniform(600, 900)])
             pts_cam = model_mm @ R.T + t
@@ -219,14 +213,7 @@ def generate_linemod_style_dataset(
                 rgb = np.where(mask[..., None], rgb, bg)
                 qd = rng.standard_normal(4)
                 qd /= np.linalg.norm(qd)
-                wd, xd, yd, zd = qd
-                Rd = np.array([
-                    [1 - 2 * (yd * yd + zd * zd), 2 * (xd * yd - wd * zd),
-                     2 * (wd * yd + xd * zd)],
-                    [2 * (xd * yd + wd * zd), 1 - 2 * (xd * xd + zd * zd),
-                     2 * (yd * zd - wd * xd)],
-                    [2 * (xd * zd - wd * yd), 2 * (wd * xd + yd * zd),
-                     1 - 2 * (xd * xd + yd * yd)]])
+                Rd = unit_quat_matrix_np(*qd)
                 td = t + np.array([rng.uniform(120, 220) * rng.choice([-1, 1]),
                                    rng.uniform(-60, 60),
                                    rng.uniform(50, 150)])
@@ -248,15 +235,7 @@ def generate_linemod_style_dataset(
                 if frame < n_train and rng.uniform() < 0.5:
                     qo = rng.standard_normal(4)
                     qo /= np.linalg.norm(qo)
-                    wo, xo, yo, zo = qo
-                    Ro = np.array([
-                        [1 - 2 * (yo * yo + zo * zo),
-                         2 * (xo * yo - wo * zo), 2 * (wo * yo + xo * zo)],
-                        [2 * (xo * yo + wo * zo),
-                         1 - 2 * (xo * xo + zo * zo),
-                         2 * (yo * zo - wo * xo)],
-                        [2 * (xo * zo - wo * yo), 2 * (wo * xo + yo * zo),
-                         1 - 2 * (xo * xo + yo * yo)]])
+                    Ro = unit_quat_matrix_np(*qo)
                     t_o = t + np.array([
                         rng.uniform(25, 60) * rng.choice([-1, 1]),
                         rng.uniform(-25, 25), -rng.uniform(120, 220)])
@@ -354,14 +333,7 @@ def generate_ycb_style_dataset(root: str, n_classes: int = 3,
         for cid in order:
             q = rng.standard_normal(4)
             q /= np.linalg.norm(q)
-            w_, x_, y_, z_ = q
-            R = np.array([
-                [1 - 2 * (y_ * y_ + z_ * z_), 2 * (x_ * y_ - w_ * z_),
-                 2 * (w_ * y_ + x_ * z_)],
-                [2 * (x_ * y_ + w_ * z_), 1 - 2 * (x_ * x_ + z_ * z_),
-                 2 * (y_ * z_ - w_ * x_)],
-                [2 * (x_ * z_ - w_ * y_), 2 * (w_ * x_ + y_ * z_),
-                 1 - 2 * (x_ * x_ + y_ * y_)]])
+            R = unit_quat_matrix_np(*q)
             t = np.array([rng.uniform(-0.12, 0.12), rng.uniform(-0.08, 0.08),
                           rng.uniform(0.7, 1.1)]) * 1000.0  # mm
             pts_cam = models_mm[cid] @ R.T + t
@@ -458,3 +430,127 @@ def delete_point_holes(points_m: np.ndarray, rng: np.random.Generator,
     if not keep.any():
         keep[:] = True  # degenerate: everything deleted — skip augmentation
     return keep
+
+
+def generate_cad_style_dataset(root: str, n_train: int = 6, n_test: int = 20,
+                               img_h: int = 260, img_w: int = 554,
+                               seed: int = 0, obj: int = 1,
+                               hole_augment: bool = False) -> None:
+    """Write a miniature customCAD (Unity-render) dataset tree that
+    :class:`densefusion_tpu_torch.data.cad.CADDataset` consumes — the role of the
+    reference's CAD generation pipeline (``datasets/customCAD/
+    cad_to_dataset.py`` + ``mask_generator.py`` + ``train_test_generator.py``)
+    with exact ground truth.
+
+    Encodes the Unity conventions the reader decodes: GL-style projection
+    matrix (``proj_mat.txt``), non-linear reversed z-buffer 16-bit depth in
+    0.1 mm world units, 65535-valued masks, left-handed quaternions and the
+    y-180 fixup in ``transforms.txt`` (see data/cad.py).
+    """
+    from PIL import Image
+    from densefusion_tpu_torch.data.cad import _Y_180
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "data", f"{obj:02d}")
+    for sub in ("rgb", "depth", "mask", "meta"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "models"), exist_ok=True)
+
+    model_mm = make_asymmetric_model(3000, scale_mm=60.0, seed=seed)
+    write_ply(os.path.join(root, "models", f"obj_{obj:02d}.ply"), model_mm)
+    model_units = model_mm * 10.0  # reader multiplies ply by 10 (0.1mm units)
+
+    # GL-style projection in 0.1 mm units; linearize(d) = -P23/(P22 + d)
+    # maps d in [0, 1] onto [near, far].
+    near, far = 1000.0, 30000.0  # 0.1 m .. 3 m
+    c = far / (near - far)
+    d = -near * far / (near - far)
+    fx_px, fy_px = 500.0, 500.0
+    proj = np.zeros((4, 4))
+    proj[0, 0] = 2.0 * fx_px / img_w
+    proj[1, 1] = -2.0 * fy_px / img_h
+    proj[2, 2] = c
+    proj[2, 3] = d
+    proj[3, 2] = 1.0
+    with open(os.path.join(base, "meta", "proj_mat.txt"), "w") as f:
+        for row in proj:
+            f.write("\t".join(f"{v:.9f}" for v in row) + "\n")
+
+    class _Cam:
+        fx, fy, cx, cy = fx_px, fy_px, img_w / 2.0, img_h / 2.0
+
+    pmin, pmax = model_mm.min(0), model_mm.max(0)
+    colors = (40 + 210 * (model_mm - pmin) / (pmax - pmin)).astype(np.uint8)
+
+    n_frames = n_train + n_test
+    transforms_lines = []
+    for frame in range(n_frames):
+        q = rng.standard_normal(4)
+        q /= np.linalg.norm(q)
+        R = unit_quat_matrix_np(*q)
+        t_m = np.array([rng.uniform(-0.04, 0.04), rng.uniform(-0.03, 0.03),
+                        rng.uniform(0.6, 1.0)])
+        t_units = t_m * 10000.0
+        posed = model_units @ R.T + t_units  # camera frame, 0.1 mm units
+
+        frame_colors = colors
+        if hole_augment:  # sensor-dropout holes (cad_to_dataset.py:137-164)
+            keep = delete_point_holes(posed / 10000.0, rng)
+            posed = posed[keep]
+            frame_colors = colors[keep]
+        rgb, depth_units, mask = _splat_render(posed, frame_colors, img_h,
+                                               img_w, _Cam, splat=2)
+        # encode reversed non-linear z: dval = -d/z - c, png = (1-dval)*65534
+        z = depth_units.astype(np.float64)
+        dval = np.where(mask, -d / np.maximum(z, 1.0) - c, 0.0)
+        png = np.where(mask, np.round((1.0 - dval) * 65534.0), 65535.0)
+        depth_png = np.clip(png, 0, 65535).astype(np.uint16)
+        mask_png = np.where(mask, 65535, 0).astype(np.uint16)
+
+        # transforms.txt: left-handed quat + pos with z negated; the reader
+        # computes R_gt = R_rh(convert(q)) @ y_180, t = pos*1000 (z flipped)
+        M = R @ _Y_180
+        # matrix -> quat (w, x, y, z)
+        tr = np.trace(M)
+        if tr > 0:
+            s = np.sqrt(tr + 1.0) * 2
+            qw = 0.25 * s
+            qx = (M[2, 1] - M[1, 2]) / s
+            qy = (M[0, 2] - M[2, 0]) / s
+            qz = (M[1, 0] - M[0, 1]) / s
+        else:
+            i = int(np.argmax(np.diag(M)))
+            j, k = (i + 1) % 3, (i + 2) % 3
+            s = np.sqrt(1.0 + M[i, i] - M[j, j] - M[k, k]) * 2
+            qv = [0.0, 0.0, 0.0]
+            qv[i] = 0.25 * s
+            qv[j] = (M[j, i] + M[i, j]) / s
+            qv[k] = (M[k, i] + M[i, k]) / s
+            qw = (M[k, j] - M[j, k]) / s
+            qx, qy, qz = qv
+        # reader negates x and y (left->right hand); pre-negate to cancel
+        q_file = (-qx, -qy, qz, qw)
+        pos = (t_units[0] / 1000.0, t_units[1] / 1000.0,
+               -t_units[2] / 1000.0)
+
+        Image.fromarray(rgb).save(
+            os.path.join(base, "rgb", f"FrameBuffer_{frame:04d}.png"))
+        Image.fromarray(depth_png).save(
+            os.path.join(base, "depth", f"Depth_{frame:04d}.png"))
+        Image.fromarray(mask_png).save(
+            os.path.join(base, "mask", f"{frame:04d}.png"))
+        # transforms indices are 1-off from image indices (dataset.py:117)
+        transforms_lines += [
+            f"{frame + 1}",
+            f"({pos[0]:.6f}, {pos[1]:.6f}, {pos[2]:.6f})",
+            f"({q_file[0]:.6f}, {q_file[1]:.6f}, {q_file[2]:.6f}, "
+            f"{q_file[3]:.6f})",
+        ]
+
+    with open(os.path.join(base, "meta", "transforms.txt"), "w") as f:
+        f.write("\n".join(transforms_lines) + "\n")
+    with open(os.path.join(base, "train.txt"), "w") as f:
+        f.write("\n".join(str(i) for i in range(n_train)) + "\n")
+    with open(os.path.join(base, "test.txt"), "w") as f:
+        f.write("\n".join(str(i)
+                          for i in range(n_train, n_frames)) + "\n")

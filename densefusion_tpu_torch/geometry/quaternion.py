@@ -8,11 +8,14 @@ conventions:
   ``R(q) @ p + t``, evaluated in batch as ``points @ R.T + t``;
 * ``untransform_points`` is the canonicalization ``(points - t) @ R``.
 
-All functions broadcast over leading batch dimensions.
+All functions broadcast over leading batch dimensions, but
+``unit_quat_matrix_np``: the host-side numpy rotation that the readers, the
+generators and the YCB scorer share.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -36,6 +39,19 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def unit_quat_matrix_np(w: float, x: float, y: float, z: float
+                        ) -> np.ndarray:
+    """The 3x3 rotation of a unit quaternion's components, numpy: each
+    caller normalizes the quaternion in its JAX counterpart's order, so its
+    outputs stay bit-equal to the JAX ones (``test_torch_cad.py``,
+    ``test_torch_ycb_toolbox.py``, ``test_torch_data.py``)."""
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (w * y + x * z)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (w * x + y * z), 1 - 2 * (x * x + y * y)],
+    ])
 
 
 def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ from densefusion_tpu_torch.train.steps import (
 )
 from densefusion_tpu_torch.train.checkpoint import (
     REFINE_MATURITY_STEPS, clamp_refine_iters, load_checkpoint,
-    load_state_dicts, peek_config, peek_curriculum, refine_step_count,
+    load_models, load_state_dicts, peek_config, peek_curriculum, refine_step_count,
     refiner_is_trained, save_checkpoint,
 )
 from densefusion_tpu_torch.train.loop import (
@@ -21,6 +21,6 @@ __all__ = ["TrainState", "Curriculum", "GradAccum", "create_train_state",
            "make_optimizer", "make_pose_train_step",
            "make_refine_train_step", "make_eval_step",
            "REFINE_MATURITY_STEPS", "clamp_refine_iters", "load_checkpoint",
-           "load_state_dicts", "peek_config", "peek_curriculum",
+           "load_models", "load_state_dicts", "peek_config", "peek_curriculum",
            "refine_step_count", "refiner_is_trained", "save_checkpoint",
            "RestartRequested", "Trainer", "build_dataset"]

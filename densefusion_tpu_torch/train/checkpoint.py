@@ -211,6 +211,20 @@ def load_state_dicts(path: str) -> tuple[dict, dict]:
             compat.refiner_state_dict_from_flax(raw["params_refine"]))
 
 
+def load_models(path: str, num_obj: int, cfg):
+    """``(PoseNet, PoseRefineNet)`` for ``num_obj`` objects, built with
+    ``cfg.decoder_flags()`` and holding a checkpoint's parameters: what the
+    evaluation CLIs run (no train state is built)."""
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+
+    posenet_state, refiner_state = load_state_dicts(path)
+    posenet = PoseNet(num_obj, **cfg.decoder_flags())
+    refiner = PoseRefineNet(num_obj)
+    posenet.load_state_dict(posenet_state, strict=True)
+    refiner.load_state_dict(refiner_state, strict=True)
+    return posenet, refiner
+
+
 def load_checkpoint(path: str, state: TrainState, restore_opt: bool = True):
     """Restore a checkpoint into ``state`` in place -> ``(state,
     curriculum, config_json | None)``.

@@ -23,7 +23,8 @@ from typing import Callable, Optional
 import torch
 
 from densefusion_tpu_torch.data import (
-    BatchLoader, LineModDataset, PrefetchIterator, YCBDataset, to_device,
+    BatchLoader, CADDataset, LineModDataset, PrefetchIterator, YCBDataset,
+    to_device,
 )
 from densefusion_tpu_torch.device import resolve_device
 from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
@@ -57,7 +58,7 @@ def _rss_gb() -> float:
 
 
 def build_dataset(cfg: RunConfig, mode: str, refine: bool):
-    """Dataset factory (``tools/train.py:99-114``): YCB or LineMOD."""
+    """Dataset factory (``tools/train.py:99-114``): YCB, LineMOD or CAD."""
     common = dict(root=cfg.dataset_root, mode=mode,
                   num_points=cfg.num_points, crop_size=cfg.crop_size,
                   refine=refine, seed=cfg.seed,
@@ -65,14 +66,14 @@ def build_dataset(cfg: RunConfig, mode: str, refine: bool):
                   add_noise=(mode == "train"))
     if cfg.dataset == "ycb":
         return YCBDataset(**common)
+    mesh = cfg.refine_mesh_points if refine else cfg.num_mesh_points
     if cfg.dataset == "linemod":
-        mesh = cfg.refine_mesh_points if refine else cfg.num_mesh_points
         return LineModDataset(num_mesh_points=mesh,
                               objlist=list(cfg.objlist) or None, **common)
     if cfg.dataset == "cad":
-        raise NotImplementedError(
-            "dataset='cad' is not ported yet (ROADMAP.md §1 A2: the CAD "
-            "reader)")
+        if cfg.objlist:
+            common["objlist"] = list(cfg.objlist)
+        return CADDataset(num_mesh_points=mesh, **common)
     raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 

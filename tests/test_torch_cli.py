@@ -102,8 +102,7 @@ def test_parsers_match_jax(name):
 
 @pytest.mark.parametrize("flags,section", [
     (["--bf16"], "§1 E"), (["--remat_cnn"], "§1 E"),
-    (["--data_parallel"], "§1 D"), (["--trace_dir", "x"], "§1 G"),
-    (["--dataset", "cad"], "§1 A2")])
+    (["--data_parallel"], "§1 D"), (["--trace_dir", "x"], "§1 G")])
 def test_unported_options_raise(root, tmp_path, flags, section):
     with pytest.raises(NotImplementedError, match=section):
         train.main(["--dataset_root", root, "--out_dir", str(tmp_path),

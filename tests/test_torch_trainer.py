@@ -35,7 +35,8 @@ import optax
 from densefusion_tpu.train import checkpoint as jck
 from densefusion_tpu.train.state import make_optimizer as j_make_optimizer
 from densefusion_tpu_torch.data import (
-    PoseSample, generate_linemod_style_dataset, to_device,
+    CADDataset, PoseSample, generate_cad_style_dataset,
+    generate_linemod_style_dataset, to_device,
 )
 from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
 from densefusion_tpu_torch.train import (
@@ -161,10 +162,23 @@ def test_empty_test_split_gives_inf(cfg):
     assert not (cur.decay_started or cur.refine_started)
 
 
-def test_cad_dataset_refused(cfg):
-    with pytest.raises(NotImplementedError, match="§1 A2"):
-        loop.build_dataset(dataclasses.replace(cfg, dataset="cad"),
-                           "train", False)
+def test_cad_dataset_refused(cfg, tmp_path):
+    """The CAD branch is no longer refused: ``build_dataset`` gives the CAD
+    reader with the phase's mesh size, the objlist and noise in train mode
+    only. An unknown dataset is still refused."""
+    root = str(tmp_path / "cad")
+    generate_cad_style_dataset(root, n_train=2, n_test=10, seed=1)
+    cad = dataclasses.replace(cfg, dataset="cad", dataset_root=root,
+                              refine_mesh_points=96)
+    for mode, refine, mesh, n in (("train", False, 64, 2),
+                                  ("test", True, 96, 1)):
+        ds = loop.build_dataset(cad, mode, refine)
+        assert isinstance(ds, CADDataset) and len(ds) == n
+        assert ds.num_mesh == mesh and ds.objlist == [1]
+        assert ds.add_noise == (mode == "train")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        loop.build_dataset(dataclasses.replace(cfg, dataset="fat"), "train",
+                           False)
 
 
 def test_epochs_of_both_phases(cfg):

@@ -66,3 +66,32 @@ def jnp_args(*arrays):
 def to_np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
+
+
+def save_jax_checkpoint(path: str, rng: np.random.Generator, num_obj: int,
+                        n: int, crop: int, cfg, refine_steps: int = 20000):
+    """A JAX-written phase-2 checkpoint at ``path`` (refine gate fired,
+    ``refine_steps`` refiner steps) with weights from ``rng``: JAX's
+    parameter structures from ``jax.eval_shape``, every leaf drawn,
+    confidences widened so the argmax hypothesis is clear. ``cfg`` is the
+    JAX ``RunConfig`` saved beside it. Returns ``(pose_params,
+    refine_params)``."""
+    from densefusion_tpu.models import PoseNet, PoseRefineNet
+    from densefusion_tpu.train import save_checkpoint
+    from densefusion_tpu.train.state import (
+        Curriculum, TrainState, make_optimizer,
+    )
+
+    img = jnp.zeros((1, crop, crop, 3))
+    pts = jnp.zeros((1, n, 3))
+    obj = jnp.zeros((1,), jnp.int32)
+    pose = init_params(PoseNet(num_obj=num_obj, **cfg.decoder_flags()), rng,
+                       img, pts, jnp.zeros((1, n), jnp.int32), obj,
+                       conf_scale=8.0)
+    ref = init_params(PoseRefineNet(num_obj=num_obj), rng, pts,
+                      jnp.zeros((1, n, EMB)), obj)
+    save_checkpoint(path, TrainState(
+        step=jnp.int32(30000), params_pose=pose, params_refine=ref,
+        opt_state=make_optimizer(1e-4).init(ref), rng=jax.random.key(0)),
+        Curriculum(refine_started=True, refine_steps=refine_steps), cfg)
+    return pose, ref
