@@ -115,6 +115,18 @@ fails. Phases, in order:
    in phase 1: no symmetric class; in phase 2 with every row gated off),
    ``cli.eval_cad`` (one remap and three kernel-6 launches per frame) and
    ``cli.inspect_sample --dataset cad``;
+   4k. SegNet at full width on the card against the CPU (B=2, 96x128, the
+   same seeded JAX-layout variables: eval logits, one train step's loss,
+   gradients and BN statistics, the argmax pool on a map with exact
+   ties); ``cli.train_seg --format linemod`` (B=8, three epochs) on a copy
+   of the 4h root, ``segnet_latest.msgpack`` reloaded bit for bit;
+   ``cli.segment --binary_class <obj> --class_vs_bg`` into its
+   ``segnet_results/``; ``cli.eval_linemod --mode eval`` of 4h's
+   checkpoint on those masks (kernel 6 three launches per PoseNet
+   forward, kernel 5 launched), with each object's non-empty masks and
+   IoU against the ground truth; ``bench_seg`` (B=4, 480x640, 22
+   classes) beside its FLOP bound; ``cli.verify_fat`` and
+   ``cli.reconstruct_fat`` on a generated FAT scene;
 5. the same B=8 batch on the card and on the CPU, with TF32 off, must agree,
    under each of the three decoders;
    5b. one phase-1 and one phase-2 loss and gradient at B=4, dropout off,
@@ -184,6 +196,12 @@ YCB_KEYFRAMES, YCB_OBJS, VIS_FRAMES = 12, 6, 4
 # the CAD path: Unity frame size, training and test frames (the test split
 # keeps every tenth), batch
 CAD_DIMS, CAD_TRAIN, CAD_TEST, CAD_BATCH = (520, 1109), 16, 30, 8
+# SegNet ([4k]): 12 classes over the LineMOD root (ape, eggbox, glue: max
+# id 11 + 1); the card-vs-CPU check's (B, H, W) and classes; train_seg's
+# batch (the linemod recipe's) and epochs; bench_seg's (B, H, W, classes),
+# the JAX benchmark's; the FAT scene's frames
+SEG_CLASSES, SEG_CARD_SHAPE, SEG_BATCH, SEG_EPOCHS = 22, (2, 96, 128), 8, 3
+SEG_BENCH, FAT_FRAMES = (4, 480, 640, 22), 2
 # the KNN benchmark's shape (densefusion_tpu_torch/cli/benchmark.py)
 KNN_QUERIES, KNN_REFS = 250_000, 500
 SEED = 0
@@ -1855,6 +1873,385 @@ def cad_path(kernels: dict, root: str, out: str, card: str) -> dict:
             "inspect_nn_mm": nn_mm}
 
 
+def seeded_segnet_variables(rng: np.random.Generator) -> dict:
+    """Full-width SegNet variables in the JAX layout (``{"params",
+    "batch_stats"}``, the tree ``densefusion_tpu_torch.compat`` carries),
+    every leaf drawn from ``rng``: conv kernels N(0, 2 / fan_in), biases
+    and BN shifts N(0, 0.05^2), BN scales near 1, running means N(0,
+    0.1^2), running variances in [0.5, 1.5]."""
+    from densefusion_tpu_torch import compat
+    from densefusion_tpu_torch.models import SegNet
+
+    sd = {}
+    for k, v in SegNet(SEG_CLASSES).state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("running_var"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith("running_mean"):
+            a = 0.1 * rng.standard_normal(shape)
+        elif k.startswith("bn") and k.endswith("weight"):
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif k.endswith("weight"):
+            a = rng.standard_normal(shape) * np.sqrt(
+                2.0 / np.prod(shape[1:]))
+        else:
+            a = 0.05 * rng.standard_normal(shape)
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    return compat.segnet_variables_from_state_dict(sd)
+
+
+def _pre_bn_bias(name: str) -> bool:
+    """A conv bias ahead of a BN: its exact gradient is 0 (BN subtracts
+    its shift), so card and CPU each hold rounding noise there."""
+    return name.startswith("conv") and name != "conv11d.bias" \
+        and name.endswith("bias")
+
+
+def _seg_step_on(variables, x, label, dev, dtype) -> dict:
+    """One SegNet train step (fresh Adam) from ``variables`` on ``dev`` in
+    ``dtype``: loss, gradients and updated BN statistics, on the CPU."""
+    from densefusion_tpu_torch import compat
+    from densefusion_tpu_torch.models import SegNet
+    from densefusion_tpu_torch.train.seg import (
+        create_seg_train_state, make_seg_train_step,
+    )
+
+    state = create_seg_train_state(SegNet(SEG_CLASSES), device=dev)
+    state.segnet.load_state_dict(
+        compat.segnet_state_dict_from_flax(variables), strict=True)
+    net = state.segnet.to(dtype)
+    loss = make_seg_train_step(state)(x.to(dev, dtype), label.to(dev))
+    return {"loss": float(loss),
+            "grads": {n: p.grad.detach().cpu().double()
+                      for n, p in net.named_parameters()},
+            "stats": {n: v.cpu().double() for n, v in net.state_dict().items()
+                      if "running" in n}}
+
+
+def _seg_step_errors(got: dict, want: dict) -> dict:
+    """Relative distances of two :func:`_seg_step_on` results: the loss,
+    gradients (each tensor's largest difference over its largest; the
+    pre-BN conv biases, whose exact gradient is 0, over the largest
+    gradient of the network) and statistics (over each tensor's
+    largest)."""
+    top = max(float(g.abs().max()) for d in (got, want)
+              for g in d["grads"].values())
+    grad, bias = 0.0, 0.0
+    for n, g in want["grads"].items():
+        if _pre_bn_bias(n):
+            bias = max(bias, float((got["grads"][n] - g).abs().max()) / top)
+        else:
+            grad = max(grad, float((got["grads"][n] - g).abs().max()
+                                   / g.abs().max()))
+    stats = max(float((got["stats"][n] - v).abs().max() / v.abs().max())
+                for n, v in want["stats"].items())
+    return {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "grad_rel": grad, "pre_bn_bias_grad_over_top": bias,
+            "stats_rel": stats}
+
+
+def segnet_card_vs_cpu(rng: np.random.Generator) -> dict:
+    """[4k] 1: full-width SegNet, B=2 at 96x128, the same seeded JAX-layout
+    variables on the card and on the CPU (TF32 off).
+
+    float32: eval logits within 1e-4 of the largest, one train step's loss
+    rel 1e-4, and the argmax pool of the first block's map (exact zeros
+    after the ReLU tie) equal on both devices. The float32 gradients and
+    statistics are a reading beside the CPU's own distance from float64:
+    at this shape the deep stages hold 96-384 positions per channel, and a
+    near-tie that pools to another position on one device moves a decoder
+    input pixel, so the float32 CPU step itself is ~0.29 of the largest
+    gradient away from float64 in the decoder convs. The gate on the
+    step's arithmetic is therefore the float64 step on both devices:
+    gradients and statistics within 1e-6 of each tensor's largest, loss rel
+    1e-9 (the pre-BN conv biases, whose exact gradient is 0, within 1e-6
+    of the largest gradient)."""
+    from densefusion_tpu_torch import compat
+    from densefusion_tpu_torch.models import SegNet
+    from densefusion_tpu_torch.models.layers import max_pool_argmax
+
+    variables = seeded_segnet_variables(rng)
+    b, h, w = SEG_CARD_SHAPE
+    x = torch.from_numpy(rng.standard_normal((b, 3, h, w)).astype(
+        np.float32))
+    label = torch.from_numpy(rng.integers(0, SEG_CLASSES, (b, h, w)))
+    logits, blocks = {}, {}
+    for dev in ("cpu", "cuda"):
+        net = SegNet(SEG_CLASSES)
+        net.load_state_dict(compat.segnet_state_dict_from_flax(variables))
+        net = net.to(dev).eval()
+        with torch.no_grad():
+            logits[dev] = net(x.to(dev)).cpu()
+            blocks[dev] = torch.relu(net.bn11(net.conv11(x.to(dev)))).cpu()
+    logit_err = float((logits["cuda"] - logits["cpu"]).abs().max()
+                      / logits["cpu"].abs().max())
+    # the pooling op alone on one map: tie-breaking on both devices
+    block = blocks["cpu"]
+    pooled, idx = max_pool_argmax(block)
+    pooled_c, idx_c = max_pool_argmax(block.cuda())
+    pool_equal = bool(torch.equal(idx, idx_c.cpu())
+                      and torch.equal(pooled, pooled_c.cpu()))
+    steps = {(dev, dt): _seg_step_on(variables, x, label, dev, dt)
+             for dev in ("cpu", "cuda")
+             for dt in (torch.float32, torch.float64)}
+    f32 = _seg_step_errors(steps["cuda", torch.float32],
+                           steps["cpu", torch.float32])
+    cpu_vs_f64 = _seg_step_errors(steps["cpu", torch.float32],
+                                  steps["cpu", torch.float64])
+    f64 = _seg_step_errors(steps["cuda", torch.float64],
+                           steps["cpu", torch.float64])
+    reading = {"logits_rel": logit_err, "pool_equal": pool_equal,
+               "zeros_in_pooled_map": int((block == 0).sum()),
+               "f32_card_vs_cpu": f32, "f32_cpu_vs_f64": cpu_vs_f64,
+               "f64_card_vs_cpu": f64}
+    if not (logit_err <= 1e-4 and pool_equal and f32["loss_rel"] <= 1e-4
+            and f64["loss_rel"] <= 1e-9 and f64["grad_rel"] <= 1e-6
+            and f64["pre_bn_bias_grad_over_top"] <= 1e-6
+            and f64["stats_rel"] <= 1e-6):
+        raise AssertionError(f"[4k] SegNet card vs CPU: {reading}")
+    log(f"[4k] SegNet card vs CPU (B={b}, {h}x{w}, {SEG_CLASSES} classes, "
+        f"full width, TF32 off): {reading}")
+    return reading
+
+
+def _mask_stats(root: str, objs) -> dict:
+    """Per object: test frames, frames with a non-empty SegNet mask, and
+    the IoU of SegNet's masks against the ground-truth masks (over all
+    test frames)."""
+    from PIL import Image
+
+    stats = {}
+    for obj in objs:
+        base = os.path.join(root, "data", f"{obj:02d}")
+        with open(os.path.join(base, "test.txt")) as f:
+            frames = [int(ln) for ln in f if ln.strip()]
+        inter = union = nonempty = 0
+        for fr in frames:
+            pred = np.array(Image.open(os.path.join(
+                root, "segnet_results", f"{obj:02d}_label",
+                f"{fr:04d}_label.png"))) == 255
+            gt = np.array(Image.open(os.path.join(
+                base, "mask", f"{fr:04d}.png"))) == 255
+            if gt.ndim == 3:
+                gt = gt[..., 0]
+            nonempty += bool(pred.any())
+            inter += int((pred & gt).sum())
+            union += int((pred | gt).sum())
+        stats[obj] = {"frames": len(frames), "nonempty": nonempty,
+                      "iou": inter / max(union, 1)}
+    return stats
+
+
+def segnet_path(kernels: dict, lm_root: str, lm_ck: str, out: str,
+                card: str) -> dict:
+    """Phase 4k: SegNet and the FAT tools.
+
+    1. SegNet on the card against the CPU (:func:`segnet_card_vs_cpu`);
+    2. ``cli.train_seg --format linemod`` on a copy of [4h]'s 480x640 root
+       (ape, eggbox, glue: 12 classes), B=8, ``SEG_EPOCHS`` epochs; then
+       ``segnet_latest.msgpack`` reloaded into a fresh state equal bit for
+       bit (parameters, BN statistics, Adam moments and step);
+    3. ``cli.segment --binary_class <obj> --class_vs_bg`` per object into
+       the copy's ``segnet_results/`` (the generator's ground-truth masks
+       removed first);
+    4. ``cli.eval_linemod --mode eval`` of [4h]'s checkpoint on those masks:
+       rates in [0, 1]; kernel 6 exactly three launches per PoseNet
+       forward, kernel 5 launched (counts reset before, read after); the
+       frames with a non-empty mask and the masks' IoU against the ground
+       truth (an empty mask is an invalid sample, as in JAX);
+    5. ``bench_seg`` (B=4, 480x640, 22 classes) beside its FLOP bound;
+    6. ``cli.verify_fat`` on a generated FAT scene (every object ok, mean
+       NN distance under 1 cm), then ``cli.reconstruct_fat``'s PLYs."""
+    from densefusion_tpu_torch.cli import (
+        eval_linemod, reconstruct_fat, segment, train_seg, verify_fat,
+    )
+    from densefusion_tpu_torch.cli.benchmark import bench_seg
+    from densefusion_tpu_torch.data import fat, generate_fat_style_scene
+    from densefusion_tpu_torch.data.ply import write_ply
+    from densefusion_tpu_torch.models import SegNet
+    from densefusion_tpu_torch.train.seg import (
+        create_seg_train_state, load_seg_latest,
+    )
+
+    result = {"card_vs_cpu": segnet_card_vs_cpu(
+        np.random.default_rng(SEED + 9))}
+
+    # 2. train_seg on a copy of the LineMOD root
+    root = os.path.join(out, "root")
+    shutil.copytree(lm_root, root)
+    shutil.rmtree(os.path.join(root, "segnet_results"))
+    seg_out, seg_logs = os.path.join(out, "segnet"), os.path.join(out, "logs")
+    run = train_seg.main([
+        "--dataset_root", root, "--format", "linemod", "--objlist",
+        *[str(o) for o in LM_OBJECTS], "--batch_size", str(SEG_BATCH),
+        "--n_epochs", str(SEG_EPOCHS), "--workers", str(DATA_WORKERS),
+        "--out_dir", seg_out, "--log_dir", seg_logs])
+    records = run["epochs"]
+    torch.cuda.synchronize()
+    num_classes = max(LM_OBJECTS) + 1
+    if not ([r["epoch"] for r in records] == list(range(1, SEG_EPOCHS + 1))
+            and all(np.isfinite(r["train_loss"]) and np.isfinite(
+                r["test_loss"]) and 0.0 <= r["fg_iou"] <= 1.0
+                for r in records)):
+        raise AssertionError(f"[4k] train_seg epochs: {records}")
+    for r in records:
+        log(f"[4k] train_seg epoch {r['epoch']}: {r['seconds']:.2f} s, "
+            f"train loss {r['train_loss']:.4f}, test loss "
+            f"{r['test_loss']:.4f}, pixel acc {r['pixel_acc']:.4f}, fg IoU "
+            f"{r['fg_iou']:.4f} (B={SEG_BATCH}, 480x640, {num_classes} "
+            f"classes); card {card}")
+    # the latest file into a fresh state: every tensor bit for bit
+    trained = run["state"]
+    latest = os.path.join(seg_out, "segnet_latest.msgpack")
+    fresh = create_seg_train_state(SegNet(num_classes), seed=SEED + 1)
+    t0 = time.perf_counter()
+    epoch, best = load_seg_latest(latest, fresh)
+    load_s = time.perf_counter() - t0
+    same = (epoch == SEG_EPOCHS and fresh.step == trained.step
+            and best == np.float32(min(r["test_loss"] for r in records)))
+    want = trained.segnet.state_dict()
+    same = same and all(torch.equal(v, want[k]) for k, v in
+                        fresh.segnet.state_dict().items())
+    for p, q in zip(fresh.segnet.parameters(), trained.segnet.parameters()):
+        a, b = fresh.optimizer.state[p], trained.optimizer.state[q]
+        same = same and int(a["step"]) == int(b["step"]) and all(
+            torch.equal(a[m], b[m]) for m in ("exp_avg", "exp_avg_sq"))
+    if not same:
+        raise AssertionError("[4k] segnet_latest.msgpack does not reload "
+                             "bit for bit")
+    log(f"[4k] segnet_latest.msgpack ({os.path.getsize(latest)} bytes) "
+        f"reloaded in {load_s:.3f} s: parameters, BN statistics, Adam "
+        f"moments and step ({fresh.step}) equal to the trained state bit "
+        f"for bit; epoch {epoch}, best {best:.4f}")
+    result.update(train_epochs=records, latest_bytes=os.path.getsize(latest),
+                  latest_load_s=load_s)
+
+    # 3. segment each object's test frames into segnet_results/
+    ckpt = os.path.join(seg_out, "segnet_best.msgpack")
+    t0 = time.perf_counter()
+    for obj in LM_OBJECTS:
+        base = os.path.join(root, "data", f"{obj:02d}")
+        segment.main([
+            "--checkpoint", ckpt, "--images",
+            os.path.join(base, "rgb", "*.png"), "--list",
+            os.path.join(base, "test.txt"), "--out_dir",
+            os.path.join(root, "segnet_results", f"{obj:02d}_label"),
+            "--num_classes", str(num_classes), "--binary_class", str(obj),
+            "--class_vs_bg", "--batch_size", "4"])
+    torch.cuda.synchronize()
+    segment_s = time.perf_counter() - t0
+    masks = _mask_stats(root, LM_OBJECTS)
+    per_obj = {o: (m["nonempty"], m["frames"], round(m["iou"], 4))
+               for o, m in masks.items()}
+    log(f"[4k] segment ({sum(m['frames'] for m in masks.values())} test "
+        f"frames, --class_vs_bg) in {segment_s:.2f} s: (non-empty masks, "
+        f"frames, IoU against the ground truth) per object {per_obj}")
+
+    # 4. LineMOD eval mode on SegNet's masks
+    eval_kernels = {k: kernels[k] for k in ("adds_remap", "phase_conv")}
+    for k in eval_kernels.values():
+        k.launches = 0
+    eval_dir = os.path.join(out, "eval")
+    t0 = time.perf_counter()
+    with counted_forwards() as fw:
+        eval_linemod.main([
+            "--dataset_root", root, "--checkpoint", lm_ck, "--objlist",
+            *[str(o) for o in LM_OBJECTS], "--mode", "eval", "--output_dir",
+            eval_dir, "--native_crops", "off"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in eval_kernels.items()}
+    with open(os.path.join(eval_dir, "result.json")) as f:
+        res = json.load(f)
+    rates = [res["rate_per_pixel"], res["rate_refined"]] + [
+        o[key] for o in res["per_object"]
+        for key in ("rate_per_pixel", "rate_refined")
+        if o[key] is not None]
+    frames = sum(m["frames"] for m in masks.values())
+    valid = sum(o["count"] for o in res["per_object"])
+    if not (all(0.0 <= r <= 1.0 for r in rates)
+            and valid + res["lost_detections"] == frames
+            and fw["n"] > 0 and launches["phase_conv"] == 3 * fw["n"]
+            and launches["adds_remap"] > 0):
+        raise AssertionError(f"[4k] eval_linemod --mode eval: {res}, "
+                             f"{fw['n']} forwards, launches {launches}")
+    log(f"[4k] eval_linemod --mode eval on SegNet's masks ({frames} frames, "
+        f"{valid} with a mask, {res['lost_detections']} lost, --iterations "
+        f"{res['iterations']}): per-pixel {res['rate_per_pixel']:.4f}, "
+        f"refined {res['rate_refined']:.4f}, {eval_s:.2f} s, {fw['n']} "
+        f"PoseNet forwards, launches {launches}; card {card}")
+    result.update(segment_s=segment_s, masks=masks, eval={
+        "seconds": eval_s, "forwards": fw["n"], "launches": launches,
+        "valid": valid, "lost": res["lost_detections"],
+        "rate_per_pixel": res["rate_per_pixel"],
+        "rate_refined": res["rate_refined"]})
+
+    # 5. bench_seg beside its FLOP bound
+    bench = bench_seg(batch=SEG_BENCH[0], height=SEG_BENCH[1],
+                      width=SEG_BENCH[2], num_classes=SEG_BENCH[3])
+    flops = segnet_forward_flops(SegNet(SEG_BENCH[3]), *SEG_BENCH[1:3])
+    infer_bound = SEG_BENCH[0] * flops / PEAK_FP32_FLOPS * 1e3
+    train_bound = 3 * infer_bound
+    bench.update(forward_gflop_per_frame=flops / 1e9,
+                 infer_bound_ms=infer_bound, train_bound_ms=train_bound)
+    log(f"[4k] bench_seg B={SEG_BENCH[0]} {SEG_BENCH[1]}x{SEG_BENCH[2]} "
+        f"{SEG_BENCH[3]} classes f32: train "
+        f"{bench['seg_train_ms_per_step']:.3f} ms per step "
+        f"({bench['seg_train_frames_per_s']:.2f} frames/s), bound "
+        f"{train_bound:.2f} ms (3x forward, "
+        f"{bench['seg_train_ms_per_step'] / train_bound:.2f}x it); "
+        f"inference {bench['seg_infer_ms_per_batch']:.3f} ms per batch "
+        f"({bench['seg_infer_frames_per_s']:.2f} frames/s), bound "
+        f"{infer_bound:.2f} ms "
+        f"({bench['seg_infer_ms_per_batch'] / infer_bound:.2f}x it); forward "
+        f"{flops / 1e9:.1f} GFLOP per frame at the fp32 peak "
+        f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s; card {card}")
+    result["bench_seg"] = bench
+
+    # 6. the FAT tools on a generated scene
+    scene = os.path.join(out, "fat_scene")
+    t0 = time.perf_counter()
+    model = generate_fat_style_scene(scene, n_frames=FAT_FRAMES, seed=SEED)
+    model_ply = os.path.join(out, "fat_model.ply")
+    write_ply(model_ply, model)
+    rows = fat.verify_scene(scene, model)
+    failures = verify_fat.main(["--scene", scene, "--model", model_ply])
+    recon = os.path.join(out, "fat_recon")
+    reconstruct_fat.main(["--scene", scene, "--model", model_ply,
+                          "--out_dir", recon])
+    fat_s = time.perf_counter() - t0
+    plys = sorted(os.listdir(recon))
+    if not (failures == 0 and len(rows) == FAT_FRAMES
+            and all(r["status"] == "ok" and r["mean_nn_dist_m"] < 0.01
+                    for r in rows)
+            and plys == ["identity.ply", "projected.ply", "target.ply"]):
+        raise AssertionError(f"[4k] FAT tools: {rows}, {failures} failures, "
+                             f"{plys}")
+    log(f"[4k] verify_fat ({FAT_FRAMES} frames): mean NN distance "
+        f"{[round(1e3 * r['mean_nn_dist_m'], 3) for r in rows]} mm, all ok; "
+        f"reconstruct_fat wrote {plys}; {fat_s:.2f} s with the scene")
+    result["fat"] = {"mean_nn_mm": [1e3 * r["mean_nn_dist_m"] for r in rows],
+                     "seconds": fat_s}
+    return result
+
+
+def segnet_forward_flops(net, h: int, w: int) -> float:
+    """FLOPs of one SegNet forward on an ``h`` x ``w`` frame: 2 x 9 x Cin x
+    Cout per output pixel of every 3x3 conv, at its stage's size (BN, ReLU,
+    pooling and unpooling, a few per element, are left out)."""
+    total = 0.0
+    for stage, names in enumerate(net.enc_layers):
+        for name in names:
+            conv = getattr(net, f"conv{name}")
+            total += conv.weight.numel() * 2 * (h >> stage) * (w >> stage)
+    for s, names in enumerate(net.dec_layers):
+        stage = len(net.dec_layers) - 1 - s
+        for name in names:
+            conv = getattr(net, f"conv{name}")
+            total += conv.weight.numel() * 2 * (h >> stage) * (w >> stage)
+    return total + net.conv11d.weight.numel() * 2 * h * w
+
+
 @contextlib.contextmanager
 def float64_casts():
     """The port casts to float32 in a few places (heads, embedding, the
@@ -2344,6 +2741,19 @@ def run() -> None:
         f"{path_launches['cad_train']}, evaluation launches "
         f"{path_launches['cad_eval']}")
 
+    # 4k. SegNet: card vs CPU, cli.train_seg on a copy of the 4h root,
+    # cli.segment, eval_linemod --mode eval of 4h's checkpoint on SegNet's
+    # masks (launch counts reset before, read after), bench_seg, FAT tools
+    seg_dir = tempfile.mkdtemp(prefix="chip_smoke_seg_")
+    atexit.register(shutil.rmtree, seg_dir, True)
+    seg = segnet_path(eval_kernels, os.path.join(lm_dir, "root"),
+                      os.path.join(lm_dir, "out", "linemod",
+                                   "checkpoint_best_pose"), seg_dir, card)
+    path_launches["segnet_eval"] = seg["eval"]["launches"]
+    log(f"[4k] SegNet: eval_linemod --mode eval launches "
+        f"{path_launches['segnet_eval']} over {seg['eval']['forwards']} "
+        f"PoseNet forwards")
+
     # 5. card vs CPU, TF32 off
     est_cpu = seeded_estimator(None, states, device="cpu")[0]
     agree = cpu_agreement(est, est_cpu, samples)
@@ -2718,7 +3128,7 @@ def run() -> None:
                                                   "max_err", "generate_s")},
                "loader": loader_rates, "train_e2e": e2e,
                "cli_train": cli, "linemod_eval": lm, "ycb_eval": ycb,
-               "cad": cad,
+               "cad": cad, "segnet": seg,
                "bench_steps": bench_steps,
                "trained_grad_reading": trained_grads,
                "bench_knn": search["bench"],

@@ -6,8 +6,14 @@ CUDA unless the caller passes ``device="cpu"``; every TPU kernel on a ported
 path is a hand-written Hopper kernel under ``csrc/`` with its plain PyTorch
 version beside its wrapper.
 
-Ported so far: the serving and scoring path (PoseNet, the 2-iteration
-refine, ADD / ADD-S), with the ADD-S remap kernel.
+It holds serving and scoring (PoseNet, the iterative refiner, ADD /
+ADD-S), both training phases and the curriculum trainer, the searches and
+their sharded forms, the three decoders, the LineMOD / YCB / customCAD
+data plane, checkpoints in the JAX package's format, the training and
+evaluation CLIs, SegNet (model, trainer, ``cli.train_seg`` and
+``cli.segment``) and the FallingThings tools; every kernel of the JAX
+package has its Hopper counterpart. ``ROADMAP.md`` lists what is not
+ported yet.
 """
 
 from densefusion_tpu_torch.serve import PoseEstimator

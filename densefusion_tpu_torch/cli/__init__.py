@@ -10,8 +10,12 @@ the card unless given ``--device cpu``:
   (host only);
 * ``python -m densefusion_tpu_torch.cli.visualize``: pose overlays of a
   checkpoint's estimates;
+* ``python -m densefusion_tpu_torch.cli.train_seg`` and ``cli.segment``:
+  SegNet training (YCB or LineMOD format) and the label / mask writer
+  whose ``segnet_results/`` masks ``cli.eval_linemod --mode eval`` reads;
 * ``python -m densefusion_tpu_torch.cli.benchmark``: the 1-NN search,
   batched and single-frame inference, the train steps of both phases, the
-  loader and loader-fed training;
-* ``cli.cad_prep`` and ``cli.inspect_sample``: dataset tools (host only).
+  loader, loader-fed training and SegNet;
+* ``cli.cad_prep``, ``cli.inspect_sample``, ``cli.verify_fat`` and
+  ``cli.reconstruct_fat``: dataset tools (host only).
 """

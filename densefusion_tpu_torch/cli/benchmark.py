@@ -1,11 +1,12 @@
 """Benchmark CLI: the 1-NN search at the training ADD-S query count,
 batched and single-frame pose inference, the train steps of both phases,
-the host data plane, and loader-fed training.
+the host data plane, loader-fed training, and SegNet.
 
 Counterpart of ``densefusion_tpu/cli/benchmark.py`` (``bench_knn``,
 ``bench_inference``, ``bench_latency``, ``bench_train_step``,
-``bench_refine_step``, ``bench_loader`` and ``bench_train_e2e``: same
-shapes and keys). Runs on the card unless given ``--device cpu``::
+``bench_refine_step``, ``bench_loader``, ``bench_train_e2e`` and
+``bench_seg``: same shapes and keys). Runs on the card unless given
+``--device cpu``::
 
     python -m densefusion_tpu_torch.cli.benchmark --what knn
     python -m densefusion_tpu_torch.cli.benchmark --what inference
@@ -14,6 +15,7 @@ shapes and keys). Runs on the card unless given ``--device cpu``::
     python -m densefusion_tpu_torch.cli.benchmark --what refine
     python -m densefusion_tpu_torch.cli.benchmark --what loader
     python -m densefusion_tpu_torch.cli.benchmark --what train_e2e
+    python -m densefusion_tpu_torch.cli.benchmark --what seg
 
 Each prints one JSON object with the device it ran on.
 
@@ -41,6 +43,11 @@ Each prints one JSON object with the device it ran on.
 * ``train_e2e``: phase-1 steps/s with the process loader feeding the step
   through ``PrefetchIterator``, the device-only rate on one batch, and the
   input-bound fraction ``1 - e2e / device``; float32.
+* ``seg``: SegNet at the reference's full frame (B=4, 480x640, 22
+  classes, seeded inputs and weights): the cross-entropy train step (ms
+  per step, frames/s) and the argmax inference pass that writes
+  ``segnet_results`` masks (ms per batch, frames/s); each step or batch
+  ended by a sync; float32, TF32 off.
 """
 
 from __future__ import annotations
@@ -231,6 +238,52 @@ def bench_refine_step(batch: int = 8, repeats: int = 10,
             "dtype": "float32", "device": _device_name(dev)}
 
 
+def bench_seg(batch: int = 4, repeats: int = 10, num_classes: int = 22,
+              height: int = 480, width: int = 640,
+              device: str | torch.device | None = None) -> dict:
+    """SegNet throughput at the reference's full-frame shape: the CE train
+    step (``vanilla_segmentation/train.py:62-78``) and the argmax-mask
+    inference pass (``vanilla_segmentation/segnet.py:6-121`` at 480x640),
+    after one warm-up each."""
+    from densefusion_tpu_torch.models import SegNet
+    from densefusion_tpu_torch.train.seg import (
+        create_seg_train_state, make_seg_train_step,
+    )
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    rgb = torch.from_numpy(rng.standard_normal(
+        (batch, 3, height, width)).astype(np.float32)).to(dev)
+    label = torch.from_numpy(rng.integers(
+        0, num_classes, (batch, height, width))).to(dev)
+    state = create_seg_train_state(SegNet(num_classes), seed=0, device=dev)
+    step = make_seg_train_step(state)
+    float(step(rgb, label))
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        float(step(rgb, label))
+    dt = (time.perf_counter() - t0) / repeats
+    out = {"seg_batch": batch, "seg_train_ms_per_step": dt * 1e3,
+           "seg_train_frames_per_s": batch / dt}
+
+    segnet = state.segnet.eval()
+
+    @torch.no_grad()
+    def infer():
+        # logits -> argmax labels, reduced to a scalar for an honest sync
+        return int(segnet(rgb).argmax(1).sum())
+
+    infer()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        infer()
+    dt = (time.perf_counter() - t0) / repeats
+    out.update({"seg_infer_ms_per_batch": dt * 1e3,
+                "seg_infer_frames_per_s": batch / dt,
+                "dtype": "float32", "device": _device_name(dev)})
+    return out
+
+
 def _device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
@@ -381,7 +434,7 @@ def main(argv=None) -> dict:
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--what", default="knn",
                    choices=["knn", "inference", "latency", "train",
-                            "refine", "loader", "train_e2e"])
+                            "refine", "loader", "train_e2e", "seg"])
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     p.add_argument("--queries", type=int, default=NUM_QUERY,
@@ -389,7 +442,7 @@ def main(argv=None) -> dict:
     p.add_argument("--workers", type=int, default=4)
     p.add_argument("--batch", type=int, default=None,
                    help="batch size (default: 8 for train / refine, 16 for "
-                        "inference / loader / train_e2e)")
+                        "inference / loader / train_e2e, 4 for seg)")
     p.add_argument("--dataset_root", default=None,
                    help="loader / train_e2e: an existing YCB-format root "
                         "(default: generate a synthetic one)")
@@ -421,6 +474,8 @@ def main(argv=None) -> dict:
                                     device=args.device)
     elif args.what == "loader":
         results = bench_loader(**data_kw)
+    elif args.what == "seg":
+        results = bench_seg(batch=args.batch or 4, device=args.device)
     else:
         results = bench_train_e2e(steps=args.steps,
                                   device_steps=args.device_steps, **data_kw)

@@ -16,6 +16,11 @@ Layout transforms (the inverse of the JAX package's importer):
 * Dense ``(in, out)`` -> Conv1d k=1 ``(out, in, 1)`` or Linear ``(out, in)``
 * PReLU scalar slope -> ``(1,)``
 
+SegNet (:class:`~densefusion_tpu_torch.models.SegNet`) has two trees,
+``{"params", "batch_stats"}``: its BN scale / shift are ``bn*.weight`` /
+``.bias`` and its statistics ``bn*.running_mean`` / ``.running_var``
+(no ``num_batches_tracked``, which the reference's torch 0.4.1 lacks).
+
 Optimizer state: torch Adam's per-parameter ``exp_avg`` / ``exp_avg_sq`` /
 ``step`` are optax ``adam``'s ``mu`` / ``nu`` / ``count`` (the same update,
 ``tests/test_torch_train.py``), each moment under its parameter's flax path
@@ -222,6 +227,72 @@ def refiner_params_from_state_dict(state_dict: Mapping) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# SegNet (vanilla_segmentation/segnet.py:6-121)
+# ---------------------------------------------------------------------------
+
+SEGNET_ENC_COUNTS = (2, 2, 3, 3, 3)   # conv layers per VGG16 pooling stage
+
+
+def _segnet_maps(enc_counts=SEGNET_ENC_COUNTS) -> tuple[dict, dict]:
+    """(params map, batch_stats map) of SegNet: flax ``enc{s}_{i}`` is
+    ``conv{s}{i}`` / ``bn{s}{i}``; flax decoder stage s unpools encoder
+    stage t = 6 - s, and its i-th conv is ``conv{t}{j}d`` / ``bn{t}{j}d``
+    with j counted down from that stage's count (the reference applies them
+    in descending order, ``vanilla_segmentation/segnet.py:100-117``); the
+    last conv of stage 1 is the classifier ``conv11d``, without BN."""
+    pmap: dict = {}
+    smap: dict = {}
+
+    def add(flax_name: str, torch_name: str) -> None:
+        conv, bn = f"conv{torch_name}", f"bn{torch_name}"
+        pmap[(flax_name, "conv", "kernel")] = (conv + ".weight", _conv2d)
+        pmap[(flax_name, "conv", "bias")] = (conv + ".bias", _bias)
+        pmap[(flax_name, "bn", "scale")] = (bn + ".weight", _bias)
+        pmap[(flax_name, "bn", "bias")] = (bn + ".bias", _bias)
+        smap[(flax_name, "bn", "mean")] = (bn + ".running_mean", _bias)
+        smap[(flax_name, "bn", "var")] = (bn + ".running_var", _bias)
+
+    for s, n in enumerate(enc_counts, start=1):
+        for i in range(1, n + 1):
+            add(f"enc{s}_{i}", f"{s}{i}")
+    for s in range(1, len(enc_counts) + 1):
+        t = len(enc_counts) + 1 - s
+        n = enc_counts[t - 1]
+        for i in range(1, (n if t > 1 else n - 1) + 1):
+            add(f"dec{s}_{i}", f"{t}{n - i + 1}d")
+    pmap[("classifier", "kernel")] = ("conv11d.weight", _conv2d)
+    pmap[("classifier", "bias")] = ("conv11d.bias", _bias)
+    return pmap, smap
+
+
+def segnet_state_dict_from_flax(variables: Mapping,
+                                enc_counts=SEGNET_ENC_COUNTS
+                                ) -> dict[str, torch.Tensor]:
+    """JAX ``SegNet`` variables ``{"params", "batch_stats"}`` -> the
+    reference ``SegNet`` state_dict names, running statistics included."""
+    pmap, smap = _segnet_maps(enc_counts)
+    out = _export({"params": variables["params"]}, pmap)
+    out.update(_export({"params": variables["batch_stats"]}, smap))
+    return out
+
+
+def segnet_variables_from_state_dict(state_dict: Mapping,
+                                     enc_counts=SEGNET_ENC_COUNTS) -> dict:
+    """A ``SegNet`` state_dict (the port's, or a reference one; its
+    ``num_batches_tracked`` entries are dropped) -> the JAX variables
+    ``{"params": ..., "batch_stats": ...}`` of numpy arrays, keys sorted."""
+    pmap, smap = _segnet_maps(enc_counts)
+    stats_keys = {key for key, _ in smap.values()}
+    params, stats = {}, {}
+    for key, value in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        (stats if key in stats_keys else params)[key] = value
+    return {"params": _import(params, pmap)["params"],
+            "batch_stats": _import(stats, smap)["params"]}
+
+
+# ---------------------------------------------------------------------------
 # Optimizer state: torch Adam <-> optax adam / MultiSteps
 # ---------------------------------------------------------------------------
 
@@ -229,13 +300,36 @@ _KEY_MAPS = {"pose": _posenet_map, "refine": _refiner_map}
 """Checkpoint phase (``params_pose`` / ``params_refine``) -> its key map."""
 
 
+def _key_map(kind: str, module) -> dict:
+    """The params key map of ``kind``: a pose phase, or ``"segnet"`` (its
+    map follows the module's stage counts)."""
+    if kind == "segnet":
+        return _segnet_maps(module.enc_counts)[0]
+    return _KEY_MAPS[kind]()
+
+
+def _moments(named: Mapping, kind: str, module) -> dict:
+    """Moments by torch name -> optax's tree: under ``"params"`` for the
+    pose phases (whose optax state mirrors the whole variables dict), bare
+    for SegNet (whose mirrors ``variables["params"]``)."""
+    tree = _import(named, _key_map(kind, module))
+    return tree["params"] if kind == "segnet" else tree
+
+
+def _moment_tensors(tree: Mapping, kind: str, module) -> dict:
+    """The inverse of :func:`_moments`, on the parameters' devices."""
+    if kind == "segnet":
+        tree = {"params": tree}
+    return _named_tensors(tree, _key_map(kind, module), module)
+
+
 def adam_to_optax(optimizer: torch.optim.Optimizer, module, kind: str
                   ) -> dict:
     """A torch Adam over ``module``'s parameters -> optax adam's state as
     flax serializes it. ``count`` is the largest per-parameter ``step`` (a
     parameter Adam has not stepped has zero moments, which optax's update
-    leaves at zero too)."""
-    mapping = _KEY_MAPS[kind]()
+    leaves at zero too). ``kind``: ``"pose"``, ``"refine"`` or
+    ``"segnet"``."""
     mu, nu, count = {}, {}, 0
     for name, p in module.named_parameters():
         st = optimizer.state.get(p, {})
@@ -245,7 +339,8 @@ def adam_to_optax(optimizer: torch.optim.Optimizer, module, kind: str
         else:
             mu[name] = nu[name] = torch.zeros_like(p)
     return {"0": {"count": np.asarray(count, np.int32),
-                  "mu": _import(mu, mapping), "nu": _import(nu, mapping)},
+                  "mu": _moments(mu, kind, module),
+                  "nu": _moments(nu, kind, module)},
             "1": {}}
 
 
@@ -270,9 +365,8 @@ def adam_from_optax(optimizer: torch.optim.Optimizer, module, kind: str,
     if set(opt_state) != {"0", "1"} or set(opt_state["0"]) != {
             "count", "mu", "nu"}:
         raise KeyError(f"not optax adam's state: keys {sorted(opt_state)}")
-    mapping = _KEY_MAPS[kind]()
-    mu = _named_tensors(opt_state["0"]["mu"], mapping, module)
-    nu = _named_tensors(opt_state["0"]["nu"], mapping, module)
+    mu = _moment_tensors(opt_state["0"]["mu"], kind, module)
+    nu = _moment_tensors(opt_state["0"]["nu"], kind, module)
     step = float(np.asarray(opt_state["0"]["count"]))
     optimizer.state.clear()
     for name, p in module.named_parameters():

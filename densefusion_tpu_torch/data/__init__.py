@@ -3,6 +3,9 @@ LineMOD, YCB-Video and customCAD readers, augmentation, the synthetic scene
 generators, and the batch loader. Batches go to the card through
 :func:`to_device`.
 
+SegNet's samples are full frames and label maps (``SegSample``); the
+FallingThings tools read FAT scenes (``FATScene``).
+
 The sample schema is the reference's six-tensor contract plus ``sym`` /
 ``valid`` flags::
 
@@ -31,9 +34,15 @@ from densefusion_tpu_torch.data.ycb import (
     YCBDataset, YCBPoseCNNEvalDataset, YCB_SYM,
 )
 from densefusion_tpu_torch.data.cad import CADDataset, UnityDepthRayMap
+from densefusion_tpu_torch.data.seg import (
+    SegSample, SegDataset, LinemodSegDataset, collate_seg, seg_to_device,
+)
 from densefusion_tpu_torch.data.loader import BatchLoader, PrefetchIterator
+from densefusion_tpu_torch.data.fat import (
+    FATScene, verify_scene as verify_fat_scene,
+)
 from densefusion_tpu_torch.data.synthetic import (
-    delete_point_holes, generate_cad_style_dataset,
+    delete_point_holes, generate_cad_style_dataset, generate_fat_style_scene,
     generate_linemod_style_dataset, generate_ycb_style_dataset,
 )
 
@@ -45,7 +54,10 @@ __all__ = [
     "LineModDataset", "LINEMOD_OBJLIST", "LINEMOD_SYM",
     "YCBDataset", "YCBPoseCNNEvalDataset", "YCB_SYM",
     "CADDataset", "UnityDepthRayMap",
-    "BatchLoader", "PrefetchIterator",
+    "SegSample", "SegDataset", "LinemodSegDataset", "collate_seg",
+    "seg_to_device", "BatchLoader", "PrefetchIterator",
+    "FATScene", "verify_fat_scene",
     "delete_point_holes", "generate_cad_style_dataset",
+    "generate_fat_style_scene",
     "generate_linemod_style_dataset", "generate_ycb_style_dataset",
 ]

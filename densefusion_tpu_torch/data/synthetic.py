@@ -1,14 +1,14 @@
-"""Synthetic LineMOD-, YCB-Video- and customCAD-format scene generators
-(counterpart of ``densefusion_tpu/data/synthetic.py``; the FallingThings
-generator is not ported yet).
+"""Synthetic LineMOD-, YCB-Video-, customCAD- and FallingThings-format
+scene generators (counterpart of ``densefusion_tpu/data/synthetic.py``).
 
 A z-sorted point-splat renderer writes miniature datasets in the exact
 directory layouts the readers consume (rgb/depth/mask PNGs, ``gt.yml`` and
 ASCII PLY models for LineMOD; -color/-depth/-label PNGs, ``-meta.mat`` and
 ``points.xyz`` for YCB; Unity FrameBuffer/Depth/mask PNGs, ``proj_mat.txt``
-and ``transforms.txt`` for customCAD), with exact ground truth, so tests, benchmarks and
-examples need no download. One seed gives the same files as the JAX
-package's generators.
+and ``transforms.txt`` for customCAD; settings JSONs and per-frame
+jpg / depth / seg / json for FallingThings), with exact ground truth, so
+tests, benchmarks and examples need no download. One seed gives the same
+files as the JAX package's generators.
 """
 
 from __future__ import annotations
@@ -554,3 +554,116 @@ def generate_cad_style_dataset(root: str, n_train: int = 6, n_test: int = 20,
     with open(os.path.join(base, "test.txt"), "w") as f:
         f.write("\n".join(str(i)
                           for i in range(n_train, n_frames)) + "\n")
+
+
+def generate_fat_style_scene(scene_dir: str, n_frames: int = 2,
+                             img_h: int = 270, img_w: int = 480,
+                             seed: int = 0) -> np.ndarray:
+    """Write a miniature FallingThings-format scene (settings JSONs + per-frame
+    jpg/depth/seg/json) with exact ground truth; returns the model points
+    (meters) for :func:`densefusion_tpu_torch.data.fat.verify_scene`.
+
+    Encodes the FAT conventions the reader decodes: transposed 4x4s with
+    translation in the last row, centimeter x100 scale, the pose axis
+    permutation, and 0.1 mm depth units (see data/fat.py docstring).
+    """
+    import json
+    from PIL import Image
+    from densefusion_tpu_torch.data.fat import (
+        FAT_PERMUTATION, FAT_DEPTH_SCALE, FAT_CM,
+    )
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(scene_dir, exist_ok=True)
+    model_m = make_asymmetric_model(3000, scale_mm=60.0, seed=seed) / 1000.0
+
+    # fixed model transform (a small canonicalization rotation + offset)
+    qf = rng.standard_normal(4)
+    qf /= np.linalg.norm(qf)
+    wf, xf, yf, zf = qf
+    Rf = np.array([
+        [1 - 2 * (yf * yf + zf * zf), 2 * (xf * yf - wf * zf),
+         2 * (wf * yf + xf * zf)],
+        [2 * (xf * yf + wf * zf), 1 - 2 * (xf * xf + zf * zf),
+         2 * (yf * zf - wf * xf)],
+        [2 * (xf * zf - wf * yf), 2 * (wf * xf + yf * zf),
+         1 - 2 * (xf * xf + yf * yf)]])
+    tf = rng.uniform(-0.02, 0.02, 3)
+    fixed_m = np.zeros((4, 4))
+    fixed_m[:3, :3] = (Rf * FAT_CM).T
+    fixed_m[3, :3] = tf * FAT_CM
+    fixed_m[3, 3] = 1.0
+
+    seg_id = 255
+    cam = dict(fx=500.0, fy=500.0, cx=img_w / 2.0, cy=img_h / 2.0)
+    with open(os.path.join(scene_dir, "_object_settings.json"), "w") as f:
+        json.dump({
+            "exported_object_classes": ["synth_obj"],
+            "exported_objects": [{
+                "class": "synth_obj",
+                "segmentation_class_id": seg_id,
+                "fixed_model_transform": fixed_m.tolist(),
+                "cuboid_dimensions": [10.0, 10.0, 10.0],
+            }],
+        }, f)
+    cam_settings = {
+        "camera_settings": [
+            {"name": side, "horizontal_fov": 64,
+             "intrinsic_settings": {**cam, "s": 0},
+             "captured_image_size": {"width": img_w, "height": img_h}}
+            for side in ("left", "right")
+        ]
+    }
+    with open(os.path.join(scene_dir, "_camera_settings.json"), "w") as f:
+        json.dump(cam_settings, f)
+
+    class _Cam:
+        fx, fy, cx, cy = cam["fx"], cam["fy"], cam["cx"], cam["cy"]
+
+    for frame in range(n_frames):
+        q = rng.standard_normal(4)
+        q /= np.linalg.norm(q)
+        w_, x_, y_, z_ = q
+        R = np.array([
+            [1 - 2 * (y_ * y_ + z_ * z_), 2 * (x_ * y_ - w_ * z_),
+             2 * (w_ * y_ + x_ * z_)],
+            [2 * (x_ * y_ + w_ * z_), 1 - 2 * (x_ * x_ + z_ * z_),
+             2 * (y_ * z_ - w_ * x_)],
+            [2 * (x_ * z_ - w_ * y_), 2 * (w_ * x_ + y_ * z_),
+             2 * 0 + 1 - 2 * (x_ * x_ + y_ * y_)]])
+        t = np.array([rng.uniform(-0.05, 0.05), rng.uniform(-0.05, 0.05),
+                      rng.uniform(0.6, 0.9)])
+        posed = (model_m @ Rf.T + tf) @ R.T + t  # meters, camera frame
+
+        colors = np.full((len(posed), 3), 180, np.uint8)
+        rgb, depth_raw, mask = _splat_render(
+            posed * 1000.0, colors, img_h, img_w, _Cam, splat=2)
+        depth_png = np.round(
+            depth_raw.astype(np.float64) / 1000.0 * FAT_DEPTH_SCALE
+        ).astype(np.uint16)
+        seg = np.where(mask, seg_id, 0).astype(np.uint8)
+
+        pose_m = np.zeros((4, 4))
+        pose_m[:3, :3] = FAT_PERMUTATION @ R.T
+        pose_m[3, :3] = t * FAT_CM
+        pose_m[3, 3] = 1.0
+        ann = {"objects": [{
+            "class": "synth_obj",
+            "pose_transform_permuted": pose_m.tolist(),
+            # plain-pose convention of the randomized scenes: same matrix
+            # recipe under test_randomize.py's decode, translation carried
+            # in 'location' (cm)
+            "pose_transform": pose_m.tolist(),
+            "location": (t * FAT_CM).tolist(),
+            "quaternion_xyzw": [x_, y_, z_, w_],
+            "bounding_box": {"top_left": [0, 0],
+                             "bottom_right": [img_h, img_w]},
+        }]}
+        key = f"{frame:06d}.left"
+        Image.fromarray(rgb).save(os.path.join(scene_dir, key + ".jpg"))
+        Image.fromarray(depth_png).save(
+            os.path.join(scene_dir, key + ".depth.png"))
+        Image.fromarray(seg).save(os.path.join(scene_dir, key + ".seg.png"))
+        with open(os.path.join(scene_dir, key + ".json"), "w") as f:
+            json.dump(ann, f)
+    return model_m

@@ -186,3 +186,28 @@ class Dropout2d(nn.Module):
                            dtype=x.dtype, device=x.device)
         mask = torch.bernoulli(probs, generator=generator)
         return torch.where(mask.bool(), x / keep, 0.0)
+
+
+def max_pool_argmax(x: torch.Tensor, window: int = 2
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``window`` x ``window`` max pool of an NCHW map, stride ``window``,
+    returning ``(pooled, indices)`` for :func:`max_unpool` (counterpart of
+    ``densefusion_tpu/models/layers.py:221``). ``indices`` are torch's flat
+    positions within each (H, W) plane; ties go to the first position of the
+    window in row-major order, as the JAX ``argmax`` breaks them. Rows and
+    columns past the last whole window are dropped.
+
+    The gradient goes to the argmax alone; ``jnp.max`` splits it evenly
+    among tied positions. After a ReLU a tie is a window of zeros, whose
+    ReLU gradient is 0 in both frameworks."""
+    return F.max_pool2d(x, window, window, return_indices=True)
+
+
+def max_unpool(x: torch.Tensor, indices: torch.Tensor,
+               window: int = 2) -> torch.Tensor:
+    """Inverse of :func:`max_pool_argmax`: each pooled value at its argmax
+    position, zeros elsewhere, in a map ``window`` times larger
+    (``densefusion_tpu/models/layers.py:240``)."""
+    h, w = x.shape[-2:]
+    return F.max_unpool2d(x, indices, window, window,
+                          output_size=(h * window, w * window))

@@ -192,3 +192,53 @@ def test_knn_ties_lowest_index_first_on_card():
     assert float(tied.float().mean()) > 0.9
     assert bool((i[..., 0][tied] < i[..., 1][tied]).all())
     assert bool((i[..., 0] < 150).all())
+
+
+@pytest.mark.cuda
+def test_segnet_step_on_card_matches_cpu():
+    """A narrow SegNet's train step on the card against the CPU (TF32 off):
+    in float64 the gradients and BN statistics within 1e-6 of each
+    tensor's largest (float32 gradients move with near-ties that pool or
+    gate the other way; ``examples/segnet_grad_precision.py``); in float32
+    the loss rel 1e-4; the argmax pool of one map equal on both."""
+    from densefusion_tpu_torch.models import SegNet
+    from densefusion_tpu_torch.models.layers import max_pool_argmax
+    from densefusion_tpu_torch.train.seg import (
+        create_seg_train_state, make_seg_train_step,
+    )
+
+    dev = _cuda()
+    enc = ((8, 8), (12, 12), (16, 16, 16), (16, 16, 16), (16, 16, 16))
+    dec = ((16, 16, 16), (16, 16, 16), (16, 16, 12), (12, 8), (8,))
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 64, 64)))
+    label = torch.from_numpy(rng.integers(0, 5, (2, 64, 64)))
+    out = {}
+    for d in ("cpu", dev):
+        for dtype in (torch.float32, torch.float64):
+            state = create_seg_train_state(SegNet(5, enc, dec), seed=3,
+                                           device=d)
+            state.segnet.to(dtype)
+            loss = make_seg_train_step(state)(x.to(d, dtype), label.to(d))
+            net = state.segnet
+            out[str(d), dtype] = (
+                float(loss),
+                {n: p.grad.cpu().double() for n, p in net.named_parameters()
+                 if not (n.startswith("conv") and n.endswith("bias")
+                         and n != "conv11d.bias")},
+                {n: v.cpu().double() for n, v in net.state_dict().items()
+                 if "running" in n})
+    cpu, card = out["cpu", torch.float64], out["cuda", torch.float64]
+    assert abs(card[0] - cpu[0]) <= 1e-9 * abs(cpu[0])
+    for got, want in ((card[1], cpu[1]), (card[2], cpu[2])):
+        for k, v in want.items():
+            assert float((got[k] - v).abs().max()) <= \
+                1e-6 * float(v.abs().max()), k
+    f32 = out["cuda", torch.float32][0], out["cpu", torch.float32][0]
+    assert abs(f32[0] - f32[1]) <= 1e-4 * abs(f32[1])
+    m = torch.relu(torch.from_numpy(rng.standard_normal((2, 8, 32, 32))
+                                    .astype(np.float32)))
+    p_cpu, i_cpu = max_pool_argmax(m)
+    p_card, i_card = max_pool_argmax(m.to(dev))
+    assert torch.equal(i_cpu, i_card.cpu()) and torch.equal(
+        p_cpu, p_card.cpu())
