@@ -127,6 +127,21 @@ fails. Phases, in order:
    IoU against the ground truth; ``bench_seg`` (B=4, 480x640, 22
    classes) beside its FLOP bound; ``cli.verify_fat`` and
    ``cli.reconstruct_fat`` on a generated FAT scene;
+   4l. bf16 compute and the model options: kernel 6's bf16 route
+   (``csrc/phase_conv_bf16.cu``) against its plain bf16 version at the
+   decoder's three shapes at B=64 and B=32 and three ragged shapes, every
+   element within one bf16 ulp, timed by graph replay in turns with
+   ``F.conv2d`` in bf16 beside its bound at the dense bf16 peak;
+   ``estimate_batch`` at B=64, K=2 with bf16 compute on the serving
+   weights (float32 outputs; raw outputs against the card's float32 ones
+   by the JAX package's bf16 criteria; the bf16 route 3 launches, the
+   float32 route none) and its frames/s beside float32's; bf16 phase-1 and
+   phase-2 steps at B=32 (finite, float32 gradients, moved parameters, step
+   ms beside float32's); a float32 phase-1 step with ``remat_cnn`` against
+   the plain one (gradients within 1e-6 of the largest; peak device memory
+   and step ms of both); ``cli.train --bf16 --remat_cnn`` for one epoch
+   on the 4f root; ``bench_latency`` (bf16 on the card); a resnet50
+   PoseNet forward at B=8 (kernel 6 three launches);
 5. the same B=8 batch on the card and on the CPU, with TF32 off, must agree,
    under each of the three decoders;
    5b. one phase-1 and one phase-2 loss and gradient at B=4, dropout off,
@@ -217,7 +232,15 @@ OTHER_DECODERS = {"dense zero-border": {"fused_decoder": False},
 # TF32 on the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# [4l]: kernel 6's bf16 route at the decoder's shapes at these batches,
+# and at ragged shapes (Cout 5 and 9 take its plain-load weight path, the
+# others TMA); the resnet50 PoseNet's batch
+BF16_CONV_BATCHES, R50_BATCH = (BATCH, TRAIN_BATCH), 8
+BF16_RAGGED = (("ragged Cin 130, Cout 5", 2, 12, 10, 130, 5),
+               ("ragged 5x7 map, Cin 3, Cout 9", 1, 5, 7, 3, 9),
+               ("ragged Cout 96", 1, 24, 24, 64, 96))
 
 
 def log(msg: str) -> None:
@@ -1767,7 +1790,7 @@ def ycb_eval_path(kernels: dict, ck: str, root: str, out: str,
     for k in kernels.values():
         k.launches = 0
     inference = bench_inference(batch=16)
-    latency = bench_latency()
+    latency = bench_latency()   # bf16 compute on the card
     bench_launches = kernels["phase_conv"].launches
     for name, value in (("inference_fps", inference["inference_fps"]),
                         ("latency_ms_median", latency["latency_ms_median"])):
@@ -1776,11 +1799,12 @@ def ycb_eval_path(kernels: dict, ck: str, root: str, out: str,
     log(f"[4i] benchmark --what inference (B=16, K=2, f32): "
         f"{inference['inference_ms_per_batch']:.3f} ms per batch, "
         f"{inference['inference_fps']:.1f} frames/s; --what latency (B=1, "
-        f"K=2, f32): median {latency['latency_ms_median']:.3f} ms, p90 "
+        f"K=2, {latency['dtype']}): median "
+        f"{latency['latency_ms_median']:.3f} ms, p90 "
         f"{latency['latency_ms_p90']:.3f} ms (latency_vs_paper_frame "
         f"{latency['latency_vs_paper_frame']:.2f}: the paper's 0.06 s on "
-        f"its GPU over the median); kernel 6 launches {bench_launches}; "
-        f"card {card}")
+        f"its GPU over the median); kernel 6's f32 route launches "
+        f"{bench_launches} (inference only); card {card}")
     for r in results.values():
         r.pop("metrics_text")
     return {"generate_s": gen_s, "routes": results,
@@ -2235,6 +2259,371 @@ def segnet_path(kernels: dict, lm_root: str, lm_ck: str, out: str,
     return result
 
 
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference of two bf16 tensors in units of one bf16 ulp
+    (2^-7 of the element's binade) of ``want``'s element, an element's
+    magnitude counted at no less than 2^-10 of ``want``'s largest: below
+    that, float32 sums taken in another order (~1e-7 of the largest) can
+    round to the neighbouring bf16 value while the element's own ulp is
+    smaller than that noise."""
+    g, w = got.float(), want.float()
+    mag = w.abs().clamp_min(float(w.abs().max()) * 2.0 ** -10)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((g - w).abs() / ulp).max())
+
+
+def check_phase_conv_bf16(phase_conv, gen, card: str) -> dict:
+    """[4l] 1: kernel 6's bf16 route against its plain bf16 version (float32
+    sums, one rounding) at the decoder's three shapes at B=64 and B=32 and
+    at ragged shapes: every element within one bf16 ulp (:func:`bf16_ulps`).
+    At the decoder's shapes, its device time by CUDA-graph replay in turns
+    with ``F.conv2d`` in bf16 (library, kernel, kernel, library), the plain
+    version's, and the bound at the dense bf16 peak."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    cases = [(f"{name} (B={bsz}, {hw}x{hw}, {cin} -> {cout})", bsz, hw, hw,
+              cin, cout, True)
+             for bsz in BF16_CONV_BATCHES
+             for name, hw, cin, cout in DECODER_CONVS]
+    cases += [(name, *shape, False) for name, *shape in BF16_RAGGED]
+    results, worst_abs = {}, 0.0
+    for name, bsz, h, w, cin, cout, timed in cases:
+        xp = torch.randn((bsz, cin, h + 2, w + 2), device=dev,
+                         generator=gen).to(torch.bfloat16)
+        pk = (torch.randn((3, 3, cin, cout), device=dev, generator=gen)
+              / np.sqrt(9 * cin)).to(torch.bfloat16)
+        got = phase_conv.phase_conv_bf16_kernel(xp, pk)
+        want = phase_conv.conv3x3_valid_plain_nchw(xp, pk)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype != torch.bfloat16 or got.shape != want.shape \
+                or not ulps <= 1.0:
+            raise AssertionError(f"[4l] phase_conv bf16 kernel differs from "
+                                 f"plain on {name}: {ulps} ulps, {err} abs")
+        worst_abs = max(worst_abs, err)
+        entry = {"max_ulps": ulps, "max_abs_err": err}
+        if timed:
+            w_oihw = pk.permute(3, 2, 0, 1).contiguous()
+            readings = [
+                graph_ms(lambda: F.conv2d(xp, w_oihw), replays=20)
+                if fn == "library" else
+                graph_ms(lambda: phase_conv.phase_conv_bf16_kernel(xp, pk),
+                         replays=20)
+                for fn in ("library", "kernel", "kernel", "library")]
+            k_ms = (readings[1] + readings[2]) / 2
+            l_ms = (readings[0] + readings[3]) / 2
+            p_ms = cuda_ms(lambda: phase_conv.conv3x3_valid_plain_nchw(
+                xp, pk), iters=3, warmup=1)
+            bnd, by = conv_bound_ms(bsz, h, w, cin, cout, "bf16")
+            entry.update({"ms": k_ms, "library_ms": l_ms, "plain_ms": p_ms,
+                          "kernel_over_library": k_ms / l_ms,
+                          "readings_ms": {"library": readings[::3],
+                                          "kernel": readings[1:3]},
+                          "bound_ms": bnd, "bound_by": by,
+                          "bound_arithmetic": "bf16"})
+            log(f"[4l] phase_conv bf16 {name}: kernel {k_ms:.4f} ms (graph "
+                f"replays), F.conv2d bf16 {l_ms:.4f} ms, kernel / library "
+                f"{k_ms / l_ms:.3f}; plain {p_ms:.4f} ms; bound {bnd:.4f} ms "
+                f"(bf16 at 989 TFLOP/s, {by}), {k_ms / bnd:.2f}x it; "
+                f"{ulps:.0f} ulp from plain; card {card}")
+        else:
+            log(f"[4l] phase_conv bf16 kernel == plain on {name}: "
+                f"{ulps:.0f} ulp, max abs err {err:.3g}")
+        results[name] = entry
+    return {"by_shape": results, "max_abs_err": worst_abs}
+
+
+def bf16_serving(states, samples, phase_conv, card: str) -> dict:
+    """[4l] 2: ``estimate_batch`` and the pipeline at B=64, K=2 with bf16
+    compute on the serving weights: float32 outputs; the raw PoseNet
+    outputs against the card's float32 ones by the JAX package's own bf16
+    criteria (``tests/test_bf16.py``: max |diff| < 0.5, correlation >
+    0.98); kernel 6's bf16 route 3 launches per PoseNet forward and the
+    float32 route none (counts reset before, read after); frames/s beside
+    float32's, timed in turns (f32, bf16, bf16, f32)."""
+    from densefusion_tpu_torch.data import collate
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.serve import PoseEstimator
+
+    ests = {name: PoseEstimator(
+        PoseNet(NUM_OBJ, dtype=dtype), PoseRefineNet(NUM_OBJ, dtype=dtype),
+        *states, num_points=NUM_POINTS, crop_size=CROP,
+        refine_iters=REFINE_ITERS, seed=SEED)
+        for name, dtype in (("f32", None), ("bf16", torch.bfloat16))}
+    kernels = {"phase_conv": phase_conv.phase_conv_kernel,
+               "phase_conv_bf16": phase_conv.phase_conv_bf16_kernel}
+    for k in kernels.values():
+        k.launches = 0
+    quat, trans, conf, valid = ests["bf16"].estimate_batch(samples)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    if launches != {"phase_conv": 0, "phase_conv_bf16": 3}:
+        raise AssertionError(f"[4l] bf16 estimate_batch launches {launches}")
+    if not (quat.dtype == trans.dtype == conf.dtype == np.float32
+            and all(np.isfinite(v).all() for v in (quat, trans, conf))
+            and np.allclose(np.linalg.norm(quat, axis=1), 1, atol=1e-4)):
+        raise AssertionError("[4l] bf16 estimate_batch output")
+    b = collate(samples)
+    args = (torch.as_tensor(b.img, device="cuda"),
+            torch.as_tensor(b.points, device="cuda"),
+            torch.as_tensor(b.choose, device="cuda").long(),
+            torch.as_tensor(b.obj_idx, device="cuda").long())
+    raw = {}
+    for name, est in ests.items():
+        with torch.no_grad():
+            raw[name] = {k: v.float().cpu().numpy() for k, v in
+                         est.pipeline.posenet(*args).items()}
+    gap = {}
+    for k in ("pred_r", "pred_t", "pred_c"):
+        a, c = raw["f32"][k], raw["bf16"][k]
+        gap[k] = {"max_abs_diff": float(np.abs(a - c).max()),
+                  "corr": float(np.corrcoef(a.ravel(), c.ravel())[0, 1]),
+                  "max_abs_f32": float(np.abs(a).max())}
+        if raw["bf16"][k].dtype != np.float32 or not (
+                gap[k]["max_abs_diff"] < 0.5 and gap[k]["corr"] > 0.98):
+            raise AssertionError(f"[4l] bf16 vs f32 {k}: {gap[k]}")
+    readings = [cuda_ms(lambda: ests[name].pipeline(*args), iters=10,
+                        warmup=2) for name in ("f32", "bf16", "bf16", "f32")]
+    ms = {"f32": (readings[0] + readings[3]) / 2,
+          "bf16": (readings[1] + readings[2]) / 2}
+    fps = {k: BATCH * 1e3 / v for k, v in ms.items()}
+    log(f"[4l] bf16 serving B={BATCH} K={REFINE_ITERS}: launches per "
+        f"estimate_batch {launches}; raw outputs vs the card's f32 {gap}; "
+        f"pipeline {ms['bf16']:.3f} ms = {fps['bf16']:.1f} frames/s against "
+        f"f32 {ms['f32']:.3f} ms = {fps['f32']:.1f} frames/s (in turns); "
+        f"card {card}")
+    return {"launches": launches, "vs_f32": gap, "pipeline_ms": ms,
+            "frames_per_s": fps, "readings_ms": readings}
+
+
+def bf16_training(states, batches, phase_conv, card: str) -> dict:
+    """[4l] 3-4: bf16 phase-1 (B=32, M=500) and phase-2 (B=32, M=2600, K=2)
+    steps beside float32 ones on the same seeded weights: finite losses,
+    float32 gradients, moved parameters, kernel 6's bf16 route 3 launches
+    per step and the float32 route none; step ms of both (host clock, in
+    turns). Then a float32 phase-1 step with ``remat_cnn`` against the
+    plain one on the same weights and dropout seed: the gradients within
+    1e-6 of the largest gradient element (read also against each tensor's
+    own largest, and a second plain step's as the card's noise: its
+    backward sums with atomics); peak device memory and step ms of
+    both."""
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.train import (
+        create_train_state, make_pose_train_step, make_refine_train_step,
+    )
+
+    def state(dtype=None, remat=False):
+        st = create_train_state(PoseNet(NUM_OBJ, dtype=dtype,
+                                        remat_cnn=remat),
+                                PoseRefineNet(NUM_OBJ, dtype=dtype), LR, SEED)
+        st.posenet.load_state_dict(states[0])
+        st.refiner.load_state_dict(states[1])
+        return st
+
+    kernels = {"phase_conv": phase_conv.phase_conv_kernel,
+               "phase_conv_bf16": phase_conv.phase_conv_bf16_kernel}
+    b1, b2 = batches
+    out = {"launches": dict.fromkeys(kernels, 0)}
+    sts = {"f32": state(), "bf16": state(torch.bfloat16)}
+    for phase, make, batch in (
+            (1, lambda st: make_pose_train_step(st, use_adds=True), b1),
+            (2, lambda st: make_refine_train_step(st, REFINE_ITERS), b2)):
+        steps = {k: make(st) for k, st in sts.items()}
+        st = sts["bf16"]
+        module = st.posenet if phase == 1 else st.refiner
+        before = _snapshot(module)
+        for k in kernels.values():
+            k.launches = 0
+        metrics = steps["bf16"](batch, W)
+        torch.cuda.synchronize()
+        got = {n: k.launches for n, k in kernels.items()}
+        for n, c in got.items():
+            out["launches"][n] += c
+        loss = float(metrics["loss"])
+        grads = [p.grad for p in module.parameters() if p.grad is not None]
+        if got != {"phase_conv": 0, "phase_conv_bf16": 3} \
+                or not np.isfinite(loss) or not _finite_grads(module) \
+                or not all(g.dtype == torch.float32 for g in grads) \
+                or not _moved(module, before):
+            raise AssertionError(f"[4l] bf16 phase-{phase} step: launches "
+                                 f"{got}, loss {loss}")
+        readings = [step_ms(steps[k], batch)
+                    for k in ("f32", "bf16", "bf16", "f32")]
+        ms = {"f32": (readings[0] + readings[3]) / 2,
+              "bf16": (readings[1] + readings[2]) / 2}
+        out[f"phase{phase}"] = {"loss": loss, "step_ms": ms,
+                                "readings_ms": readings}
+        log(f"[4l] bf16 phase-{phase} step B={TRAIN_BATCH} M="
+            f"{batch.target.shape[1]}: loss {loss:.6f}, launches {got}; "
+            f"{ms['bf16']:.3f} ms per step against f32 {ms['f32']:.3f} ms "
+            f"(in turns); card {card}")
+
+    # remat_cnn, float32, train mode: gradients, peak memory, step time;
+    # a second plain step gives the card's own step-to-step noise (cuDNN's
+    # backward and the gathers' scatter-adds use atomics)
+    remat = {}
+    for name, flag in (("plain", False), ("remat", True),
+                       ("plain again", False)):
+        st = state(remat=flag)
+        step = make_pose_train_step(st, use_adds=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(b1, W)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        remat[name] = {"grads": {k: p.grad.clone() for k, p in
+                                 st.posenet.named_parameters()},
+                       "peak_bytes": peak, "peak_over_base_bytes":
+                       peak - base, "step": step}
+    plain = remat["plain"]["grads"]
+    largest = max(float(g.abs().max()) for g in plain.values())
+
+    def diff(name):
+        """(largest difference from the plain step over its largest
+        element, the same over each tensor's own largest, worst tensor)"""
+        got = remat[name]["grads"]
+        return (max(float((got[k] - g).abs().max()) for k, g in plain.items())
+                / largest,
+                max(float((got[k] - g).abs().max())
+                    / max(float(g.abs().max()), 1e-30)
+                    for k, g in plain.items()))
+
+    worst, worst_tensor = diff("remat")
+    noise, noise_tensor = diff("plain again")
+    if not worst <= 1e-6:
+        raise AssertionError(f"[4l] remat_cnn gradients differ from the "
+                             f"plain step's by {worst} of the largest "
+                             f"element (a second plain step: {noise})")
+    readings = [step_ms(remat[k]["step"], b1)
+                for k in ("plain", "remat", "remat", "plain")]
+    remat.pop("plain again")
+    out["remat"] = {
+        "max_grad_diff_over_largest": worst,
+        "max_grad_diff_over_each_tensors_largest": worst_tensor,
+        "plain_again_over_largest": noise,
+        "plain_again_over_each_tensors_largest": noise_tensor,
+        "peak_bytes": {k: remat[k]["peak_bytes"] for k in remat},
+        "peak_over_base_bytes": {k: remat[k]["peak_over_base_bytes"]
+                                 for k in remat},
+        "step_ms": {"plain": (readings[0] + readings[3]) / 2,
+                    "remat": (readings[1] + readings[2]) / 2},
+        "readings_ms": readings}
+    r = out["remat"]
+    log(f"[4l] remat_cnn phase-1 step B={TRAIN_BATCH} f32 (train mode): "
+        f"gradients within {worst:.3g} of the plain step's largest element "
+        f"({worst_tensor:.3g} of a tensor's own largest; a second plain "
+        f"step: {noise:.3g}, {noise_tensor:.3g}); peak "
+        f"device memory {r['peak_bytes']['remat'] / 2**30:.3f} GiB against "
+        f"{r['peak_bytes']['plain'] / 2**30:.3f} GiB plain (above the state "
+        f"before the step: {r['peak_over_base_bytes']['remat'] / 2**30:.3f} "
+        f"against {r['peak_over_base_bytes']['plain'] / 2**30:.3f}); "
+        f"{r['step_ms']['remat']:.3f} ms per step against "
+        f"{r['step_ms']['plain']:.3f} ms (in turns); card {card}")
+    return out
+
+
+def bf16_cli_path(phase_conv, root: str, out: str, card: str) -> dict:
+    """[4l] 5-6: ``cli.train --bf16 --remat_cnn``, one epoch at the YCB
+    width on the 4f root (B=16), kernel 6's bf16 route 3 launches per train
+    step and the float32 route none; ``bench_latency`` with bf16 compute
+    on the card; then a resnet50 PoseNet forward at B=8, float32, at the
+    YCB width: kernel 6 three launches, finite outputs."""
+    from densefusion_tpu_torch.cli import train as train_cli
+    from densefusion_tpu_torch.cli.benchmark import bench_latency
+    from densefusion_tpu_torch.data import collate
+    from densefusion_tpu_torch.models import PoseNet
+    from densefusion_tpu_torch.models.init import init_posenet_
+
+    kernels = {"phase_conv": phase_conv.phase_conv_kernel,
+               "phase_conv_bf16": phase_conv.phase_conv_bf16_kernel}
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_cli.main([
+        "--dataset", "ycb", "--dataset_root", root, "--batch_size",
+        str(CLI_BATCH), "--workers", str(DATA_WORKERS), "--nepoch", "1",
+        "--bf16", "--remat_cnn", "--out_dir", out, "--log_dir",
+        os.path.join(out, "logs")])
+    cli_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    records = _train_metrics(os.path.join(out, "logs", "ycb"))
+    if not (trainer.cfg.bf16_compute and trainer.cfg.remat_cnn
+            and trainer.posenet.remat_cnn
+            and trainer.posenet.feat.dtype == torch.bfloat16
+            and trainer.curriculum.epoch == 2
+            and launches["phase_conv"] == 0
+            and launches["phase_conv_bf16"] > 0
+            and launches["phase_conv_bf16"] % 3 == 0
+            and all(p.dtype == torch.float32
+                    for p in trainer.posenet.parameters())):
+        raise AssertionError(f"[4l] cli.train --bf16 --remat_cnn: launches "
+                             f"{launches}, {trainer.curriculum}")
+    log(f"[4l] cli.train --bf16 --remat_cnn: one epoch in {cli_s:.2f} s, "
+        f"kernel launches {launches} (train steps recompute the CNN: 6 per "
+        f"step, 3 per test batch); metrics {records[-1:]}; card {card}")
+
+    for k in kernels.values():
+        k.launches = 0
+    latency = bench_latency(repeats=10)
+    lat_launches = {n: k.launches for n, k in kernels.items()}
+    if latency["dtype"] != "bfloat16" or lat_launches["phase_conv"] != 0 \
+            or lat_launches["phase_conv_bf16"] != 3 * 11:
+        raise AssertionError(f"[4l] bench_latency: {latency}, launches "
+                             f"{lat_launches}")
+    log(f"[4l] bench_latency (B=1, K=2, {latency['dtype']}): median "
+        f"{latency['latency_ms_median']:.3f} ms, p90 "
+        f"{latency['latency_ms_p90']:.3f} ms; launches {lat_launches}; "
+        f"card {card}")
+
+    rng = np.random.default_rng(SEED + 11)
+    net = PoseNet(NUM_OBJ, cnn_variant="resnet50")
+    init_posenet_(net, torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        net.cnn.model.module.final[0].weight.normal_(
+            0.0, 0.1, generator=torch.Generator().manual_seed(SEED))
+    net = net.cuda().eval()
+    b = collate([_r50_sample(rng) for _ in range(R50_BATCH)])
+    args = (torch.as_tensor(b.img, device="cuda"),
+            torch.as_tensor(b.points, device="cuda"),
+            torch.as_tensor(b.choose, device="cuda").long(),
+            torch.as_tensor(b.obj_idx, device="cuda").long())
+    for k in kernels.values():
+        k.launches = 0
+    with torch.no_grad():
+        r50 = net(*args)
+        torch.cuda.synchronize()
+        r50_launches = {n: k.launches for n, k in kernels.items()}
+        if r50_launches != {"phase_conv": 3, "phase_conv_bf16": 0} \
+                or not all(bool(torch.isfinite(v).all())
+                           for v in r50.values()):
+            raise AssertionError(f"[4l] resnet50 PoseNet: launches "
+                                 f"{r50_launches}")
+        r50_ms = cuda_ms(lambda: net(*args), iters=5, warmup=1)
+    log(f"[4l] resnet50 PoseNet forward B={R50_BATCH} f32 at the YCB width: "
+        f"launches {r50_launches}, {r50_ms:.3f} ms; card {card}")
+    return {"cli_seconds": cli_s, "cli_launches": launches,
+            "latency": latency, "latency_launches": lat_launches,
+            "resnet50_launches": r50_launches, "resnet50_ms": r50_ms}
+
+
+def _r50_sample(rng):
+    """One seeded YCB-width sample for the resnet50 forward."""
+    from densefusion_tpu_torch.data import PoseSample
+
+    return PoseSample(
+        points=(rng.standard_normal((NUM_POINTS, 3)) * 0.05)
+        .astype(np.float32),
+        choose=rng.integers(0, CROP * CROP, (NUM_POINTS,)).astype(np.int32),
+        img=rng.standard_normal((CROP, CROP, 3)).astype(np.float32),
+        target=np.zeros((NUM_MESH, 3), np.float32),
+        model_points=np.zeros((NUM_MESH, 3), np.float32),
+        obj_idx=np.int32(rng.integers(0, NUM_OBJ)), sym=np.bool_(False),
+        valid=np.bool_(True))
+
+
 def segnet_forward_flops(net, h: int, w: int) -> float:
     """FLOPs of one SegNet forward on an ``h`` x ``w`` frame: 2 x 9 x Cin x
     Cout per output pixel of every 3x3 conv, at its stage's size (BN, ReLU,
@@ -2555,16 +2944,19 @@ def conv_bound_ms(bsz, h, w, cin, cout,
     operations per multiply-add over the h x w outputs (not the phantom
     columns); the padded input, the weights and the (B, Cout, h, w) output
     moved once. ``arithmetic`` is the route's: "3xtf32", the kernel's three
-    TF32 tensor-core products per product at ``PEAK_TF32_FLOPS``, or
-    "ffma", one float32 FMA outside the tensor cores at
-    ``PEAK_FP32_FLOPS``."""
+    TF32 tensor-core products per product at ``PEAK_TF32_FLOPS``, "ffma",
+    one float32 FMA outside the tensor cores at ``PEAK_FP32_FLOPS``, or
+    "bf16", the bf16 route's one bf16 product at ``PEAK_BF16_FLOPS`` on
+    bf16 operands (2 bytes each)."""
     ops = 2 * 9 * bsz * h * w * cin * cout
-    nbytes = 4 * (bsz * (h + 2) * (w + 2) * cin + 9 * cin * cout
-                  + bsz * h * w * cout)
+    nbytes = (2 if arithmetic == "bf16" else 4) * (
+        bsz * (h + 2) * (w + 2) * cin + 9 * cin * cout + bsz * h * w * cout)
     if arithmetic == "3xtf32":
         t_ops = 3 * ops / PEAK_TF32_FLOPS
     elif arithmetic == "ffma":
         t_ops = ops / PEAK_FP32_FLOPS
+    elif arithmetic == "bf16":
+        t_ops = ops / PEAK_BF16_FLOPS
     else:
         raise ValueError(f"unknown arithmetic {arithmetic!r}")
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -2754,6 +3146,24 @@ def run() -> None:
         f"{path_launches['segnet_eval']} over {seg['eval']['forwards']} "
         f"PoseNet forwards")
 
+    # 4l. bf16 compute and the model options: kernel 6's bf16 route
+    # against its plain version (and timed), bf16 serving and training
+    # (their own launch counts), remat_cnn, cli.train --bf16 --remat_cnn,
+    # bench_latency in bf16, a resnet50 PoseNet
+    bf16_dir = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    atexit.register(shutil.rmtree, bf16_dir, True)
+    log("[4l] kernel 6's bf16 route against its plain version")
+    bf16_conv = check_phase_conv_bf16(
+        phase_conv, torch.Generator("cuda").manual_seed(SEED + 13), card)
+    max_err["phase_conv_bf16"] = bf16_conv["max_abs_err"]
+    bf16_serve = bf16_serving(states, samples, phase_conv, card)
+    path_launches["bf16_serving"] = bf16_serve["launches"]
+    bf16_train = bf16_training(states, (b1, b2), phase_conv, card)
+    path_launches["bf16_training"] = bf16_train["launches"]
+    bf16_cli = bf16_cli_path(phase_conv, data_root, bf16_dir, card)
+    path_launches["bf16_cli_train"] = bf16_cli["cli_launches"]
+    path_launches["resnet50"] = bf16_cli["resnet50_launches"]
+
     # 5. card vs CPU, TF32 off
     est_cpu = seeded_estimator(None, states, device="cpu")[0]
     agree = cpu_agreement(est, est_cpu, samples)
@@ -2857,7 +3267,9 @@ def run() -> None:
         f"workers) {loader_rates.get('loader_ring_samples_per_s', 0):.1f} "
         f"samples/s; cache hit rate "
         f"{loader_rates['loader_cache_hit_rate']:.3f}; card {card}")
-    log(f"[6] train_e2e B={TRAIN_BATCH} M={NUM_MESH} f32, {E2E_STEPS} "
+    if e2e["dtype"] != "bfloat16":
+        raise AssertionError(f"[6] bench_train_e2e ran {e2e['dtype']}")
+    log(f"[6] train_e2e B={TRAIN_BATCH} M={NUM_MESH} bf16, {E2E_STEPS} "
         f"loader-fed steps: {e2e['train_e2e_steps_per_s']:.3f} steps/s "
         f"({e2e['train_e2e_frames_per_s']:.1f} frames/s), device-only "
         f"{e2e['train_device_only_steps_per_s']:.3f} steps/s, input-bound "
@@ -3117,6 +3529,26 @@ def run() -> None:
         "by_shape_b8": conv_times_small[8],
         "parity": "ok", "build_s": build_s,
     })
+    up1_bf16 = bf16_conv["by_shape"][
+        f"up1 (B={BATCH}, {DECODER_CONVS[0][1]}x{DECODER_CONVS[0][1]}, "
+        f"{DECODER_CONVS[0][2]} -> {DECODER_CONVS[0][3]})"]
+    kernels.append({
+        "name": "phase_conv_bf16", "route": "cuda",
+        "source": "densefusion_tpu_torch/csrc/phase_conv_bf16.cu",
+        "replaces": "densefusion_tpu/ops/phase_conv.py:72",
+        **launches("phase_conv_bf16", "bf16_serving"),
+        "max_abs_err": max_err["phase_conv_bf16"],
+        "max_ulps": max(c["max_ulps"]
+                        for c in bf16_conv["by_shape"].values()),
+        "ms": up1_bf16["ms"], "plain_ms": up1_bf16["plain_ms"],
+        "bound_ms": up1_bf16["bound_ms"], "bound_by": up1_bf16["bound_by"],
+        "library_ms": up1_bf16["library_ms"],
+        "kernel_over_library": up1_bf16["kernel_over_library"],
+        "library_note": "F.conv2d in bf16 on the same padded input, VALID",
+        "shape": "up1 (B=64, 24x24, 1024 -> 1024), bf16",
+        "by_shape": bf16_conv["by_shape"], "parity": "ok",
+        "build_s": build_s,
+    })
     summary = {"pipeline_ms_b64": pipe_ms,
                "frames_per_s_b64": BATCH * 1e3 / pipe_ms,
                "estimate_batch_ms_b64": serve_ms,
@@ -3135,6 +3567,8 @@ def run() -> None:
                "frames_per_s_b64_other_decoders": decoder_fps,
                "decoder_path_rel_errors": decoder["rel_errors"],
                "serving_cpu_agreement": agree,
+               "bf16_serving": bf16_serve, "bf16_training": bf16_train,
+               "bf16_cli": bf16_cli,
                "train_cpu_agreement": train_agree, "card": card}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"kernels": kernels}))

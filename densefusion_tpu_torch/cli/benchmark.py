@@ -28,8 +28,9 @@ Each prints one JSON object with the device it ran on.
   poses), frames/s; float32.
 * ``latency``: the same at B=1, each request timed alone and ended by a
   read of its pose: median and p90 ms, and ``latency_vs_paper_frame`` =
-  0.06 s (the paper's per-frame time, on its GPU) over the median. The JAX
-  benchmark runs bfloat16 on an accelerator; the port runs float32.
+  0.06 s (the paper's per-frame time, on its GPU) over the median; bfloat16
+  compute on the card and float32 on the CPU, as the JAX benchmark runs
+  bfloat16 on an accelerator only (``"dtype"`` says which).
 * ``train``: the phase-1 step (forward, ADD-S loss, backward, Adam) at
   B=8, N=1000, M=500, 192 px, 21 objects, a quarter of the rows symmetric,
   on one seeded batch: ms per step (host clock, each step ended by a
@@ -42,7 +43,8 @@ Each prints one JSON object with the device it ran on.
   thread workers) and ring (fork workers and the shared-memory ring).
 * ``train_e2e``: phase-1 steps/s with the process loader feeding the step
   through ``PrefetchIterator``, the device-only rate on one batch, and the
-  input-bound fraction ``1 - e2e / device``; float32.
+  input-bound fraction ``1 - e2e / device``; bfloat16 compute (float32
+  parameters and Adam state), as the JAX benchmark's.
 * ``seg``: SegNet at the reference's full frame (B=4, 480x640, 22
   classes, seeded inputs and weights): the cross-entropy train step (ms
   per step, frames/s) and the argmax inference pass that writes
@@ -97,11 +99,13 @@ def bench_knn(repeats: int = 50, device: str | torch.device | None = None,
                        else "cpu")}
 
 
-def _pose_pipeline(batch: int, refine_iters: int, dev, obj_zero: bool):
+def _pose_pipeline(batch: int, refine_iters: int, dev, obj_zero: bool,
+                   dtype: torch.dtype | None = None):
     """(pipeline, inputs) of the inference benchmarks: the YCB width, fresh
     weights with the JAX package's initializers, inputs on the device; all
     drawn from seeded generators on the CPU, so every device gets the same
-    values. ``obj_zero`` gives every row object 0 (the latency request)."""
+    values. ``obj_zero`` gives every row object 0 (the latency request);
+    ``dtype`` is the networks' compute type (None: float32)."""
     from densefusion_tpu_torch.eval import InferencePipeline
     from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
     from densefusion_tpu_torch.models.init import (
@@ -115,7 +119,8 @@ def _pose_pipeline(batch: int, refine_iters: int, dev, obj_zero: bool):
     choose = torch.randint(0, crop * crop, (batch, n), generator=gen)
     obj = (torch.zeros((batch,), dtype=torch.int64) if obj_zero
            else torch.randint(0, NUM_OBJ, (batch,), generator=gen))
-    posenet, refiner = PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ)
+    posenet = PoseNet(NUM_OBJ, dtype=dtype)
+    refiner = PoseRefineNet(NUM_OBJ, dtype=dtype)
     init_posenet_(posenet, gen)
     init_refiner_(refiner, gen)
     pipe = InferencePipeline(posenet, refiner, refine_iters=refine_iters,
@@ -143,12 +148,15 @@ def bench_inference(batch: int = 16, repeats: int = 20,
 def bench_latency(repeats: int = 50, refine_iters: int = 2,
                   device: str | torch.device | None = None) -> dict:
     """Single-frame (B=1) pose and refinement latency, each request timed
-    alone and ended by a read of its pose (no pipelining). Float32: the JAX
-    benchmark's bfloat16 is not ported yet. ``latency_vs_paper_frame``
-    divides the paper's 0.06 s per frame (its GPU, arXiv:1901.04780) by the
-    median: a yardstick, not a target measured on this card."""
+    alone and ended by a read of its pose (no pipelining). bfloat16 compute
+    on the card, float32 on the CPU (the JAX benchmark's choice: bfloat16
+    on an accelerator). ``latency_vs_paper_frame`` divides the paper's
+    0.06 s per frame (its GPU, arXiv:1901.04780) by the median: a
+    yardstick, not a target measured on this card."""
     dev = resolve_device(device)
-    pipe, inputs = _pose_pipeline(1, refine_iters, dev, obj_zero=True)
+    dtype = torch.bfloat16 if dev.type == "cuda" else None
+    pipe, inputs = _pose_pipeline(1, refine_iters, dev, obj_zero=True,
+                                  dtype=dtype)
     pipe(*inputs)[0].cpu()
     lats = []
     for _ in range(repeats):
@@ -160,7 +168,8 @@ def bench_latency(repeats: int = 50, refine_iters: int = 2,
     return {"latency_refine_iters": refine_iters,
             "latency_ms_median": mid * 1e3,
             "latency_ms_p90": lats[int(len(lats) * 0.9)] * 1e3,
-            "latency_vs_paper_frame": 0.06 / mid, "dtype": "float32",
+            "latency_vs_paper_frame": 0.06 / mid,
+            "dtype": str(dtype or torch.float32).removeprefix("torch."),
             "device": _device_name(dev)}
 
 
@@ -359,7 +368,8 @@ def bench_train_e2e(batch: int = 16, steps: int = 60, workers: int = 4,
     """Phase-1 training throughput with the process loader feeding the step
     (synthetic YCB, full augmentation): achieved steps/s, the device-only
     rate on one batch, and the input-bound fraction (0 when the host keeps
-    up). Float32: the JAX benchmark's bfloat16 is not ported yet."""
+    up). bfloat16 compute, as the JAX benchmark's (``cfg.bf16_compute``);
+    parameters and Adam state stay float32."""
     from densefusion_tpu_torch.data import (
         BatchLoader, PrefetchIterator, YCBDataset, to_device,
     )
@@ -382,10 +392,12 @@ def bench_train_e2e(batch: int = 16, steps: int = 60, workers: int = 4,
         ds[i]
     loader = BatchLoader(ds, batch, shuffle=True, num_workers=workers,
                          drop_last=True, worker_mode="process")
-    cfg = RunConfig.preset("ycb", num_points=num_points, crop_size=crop_size)
-    check_ported(cfg)
+    cfg = RunConfig.preset("ycb", num_points=num_points, crop_size=crop_size,
+                           bf16_compute=True)
+    check_ported(cfg, dev)
     num_obj = len(ds.classes)
-    state = create_train_state(PoseNet(num_obj), PoseRefineNet(num_obj),
+    state = create_train_state(PoseNet(num_obj, dtype=torch.bfloat16),
+                               PoseRefineNet(num_obj, dtype=torch.bfloat16),
                                cfg.lr, cfg.seed, dev)
     step = make_pose_train_step(state, use_adds=True)
     try:
@@ -424,7 +436,7 @@ def bench_train_e2e(batch: int = 16, steps: int = 60, workers: int = 4,
         "train_e2e_frames_per_s": e2e_rate * batch,
         "train_device_only_steps_per_s": dev_rate,
         "train_e2e_input_bound_fraction": max(0.0, 1.0 - e2e_rate / dev_rate),
-        "dtype": "float32",
+        "dtype": "bfloat16",
         "device": _device_name(dev),
     }
 

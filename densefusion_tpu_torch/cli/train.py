@@ -9,9 +9,11 @@ Example::
 
 Runs on the card unless given ``--device cpu``. Checkpoints go to
 ``<out_dir>/<dataset>/checkpoint_{best_pose,best_refine,current}`` in the JAX
-package's format. Options the port does not run yet (``--bf16``,
-``--remat_cnn``, ``--data_parallel``, ``--trace_dir``) raise
-``NotImplementedError`` naming their ROADMAP.md section.
+package's format. ``--bf16`` trains with bf16 compute (float32 parameters,
+Adam state and checkpoints) and ``--remat_cnn`` recomputes the CNN in the
+backward pass. Options the port does not run yet (``--data_parallel``,
+``--trace_dir``) raise ``NotImplementedError`` naming their ROADMAP.md
+section.
 """
 
 from __future__ import annotations
@@ -66,10 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard batches over all available devices (not "
                         "ported yet: ROADMAP.md §1 D)")
     p.add_argument("--bf16", action="store_true",
-                   help="bf16 compute (not ported yet: ROADMAP.md §1 E)")
+                   help="bf16 compute (float32 parameters and outputs)")
     p.add_argument("--remat_cnn", action="store_true",
-                   help="recompute the CNN in backward (not ported yet: "
-                        "ROADMAP.md §1 E)")
+                   help="recompute the CNN in backward (lower peak "
+                        "activation memory)")
     p.add_argument("--trace_dir", default=None,
                    help="capture a profiler trace of the run (not ported "
                         "yet: ROADMAP.md §1 G)")

@@ -37,7 +37,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from densefusion_tpu_torch.models.resnet import RESNET_DEPTHS
+from densefusion_tpu_torch.models.resnet import Bottleneck, RESNET_SPECS
 
 
 def _conv2d(w):
@@ -75,12 +75,17 @@ _INVERSE = {
 # ---------------------------------------------------------------------------
 
 def _trunk_map(prefix: str, variant: str) -> dict:
+    """Every trunk of ``RESNET_SPECS``: a Bottleneck block has conv1..3
+    (``densefusion_tpu/compat.py:115-131``)."""
+    block, depths = RESNET_SPECS[variant]
+    convs = ("conv1", "conv2", "conv3") if block is Bottleneck \
+        else ("conv1", "conv2")
     m = {("trunk", "stem", "kernel"): (f"{prefix}conv1.weight", _conv2d)}
-    for s, depth in enumerate(RESNET_DEPTHS[variant]):
+    for s, depth in enumerate(depths):
         for b in range(depth):
             t = f"{prefix}layer{s + 1}.{b}."
             blk = f"stage{s + 1}_block{b}"
-            for c in ("conv1", "conv2"):
+            for c in convs:
                 m[("trunk", blk, c, "kernel")] = (t + f"{c}.weight", _conv2d)
             # only blocks that change stride or width have a projection;
             # the export walks the tree, so unused entries are never read
@@ -296,16 +301,15 @@ def segnet_variables_from_state_dict(state_dict: Mapping,
 # Optimizer state: torch Adam <-> optax adam / MultiSteps
 # ---------------------------------------------------------------------------
 
-_KEY_MAPS = {"pose": _posenet_map, "refine": _refiner_map}
-"""Checkpoint phase (``params_pose`` / ``params_refine``) -> its key map."""
-
-
 def _key_map(kind: str, module) -> dict:
-    """The params key map of ``kind``: a pose phase, or ``"segnet"`` (its
-    map follows the module's stage counts)."""
+    """The params key map of ``kind`` for ``module``: ``"pose"`` (the
+    PoseNet's trunk variant), ``"refine"``, or ``"segnet"`` (its map
+    follows the module's stage counts)."""
     if kind == "segnet":
         return _segnet_maps(module.enc_counts)[0]
-    return _KEY_MAPS[kind]()
+    if kind == "pose":
+        return _posenet_map(module.cnn_variant)
+    return _refiner_map()
 
 
 def _moments(named: Mapping, kind: str, module) -> dict:
@@ -381,7 +385,7 @@ def multisteps_to_optax(optimizer, module, kind: str, accum) -> dict:
     return {"mini_step": np.asarray(accum.mini_step, np.int32),
             "gradient_step": np.asarray(accum.gradient_step, np.int32),
             "inner_opt_state": adam_to_optax(optimizer, module, kind),
-            "acc_grads": _import(named, _KEY_MAPS[kind]()),
+            "acc_grads": _import(named, _key_map(kind, module)),
             "skip_state": {}}
 
 
@@ -395,7 +399,8 @@ def multisteps_from_optax(optimizer, module, kind: str, accum,
         raise KeyError(f"not optax MultiSteps' state: keys "
                        f"{sorted(opt_state)}")
     adam_from_optax(optimizer, module, kind, opt_state["inner_opt_state"])
-    acc = _named_tensors(opt_state["acc_grads"], _KEY_MAPS[kind](), module)
+    acc = _named_tensors(opt_state["acc_grads"], _key_map(kind, module),
+                         module)
     for a, (name, _) in zip(accum.acc, module.named_parameters()):
         a.copy_(acc[name])
     accum.mini_step = int(np.asarray(opt_state["mini_step"]))

@@ -2,6 +2,12 @@
 
 The port computes in PyTorch's NCHW layout inside the networks; the public
 model functions keep the JAX package's NHWC layout at their boundaries.
+
+Compute type: every layer computes in its input's type and casts its
+float32 parameters to that type where it uses them (:func:`cast`), where
+the JAX package's modules cast them under ``dtype=jnp.bfloat16``; the
+gradient flows back through the cast to the float32 parameter. A float32
+input leaves every cast a no-op.
 """
 
 from __future__ import annotations
@@ -21,9 +27,36 @@ UPSAMPLE_TAPS_EVEN = ((0.75, 0.25, 0.0), (0.25, 0.75, 0.0), (0.0, 0.75, 0.25))
 UPSAMPLE_TAPS_ODD = ((0.25, 0.75, 0.0), (0.0, 0.75, 0.25), (0.0, 0.25, 0.75))
 
 
+def cast(t: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
+    """A parameter ``t`` in ``x``'s compute type (None stays None)."""
+    return None if t is None else t.to(x.dtype)
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` with its weight and bias cast to ``x``'s type. Outside
+    float32 the bias is added after the convolution's rounding to that
+    type, as flax's ``Conv`` adds it."""
+    y = F.conv2d(x, cast(conv.weight, x),
+                 cast(conv.bias, x) if x.dtype == torch.float32 else None,
+                 conv.stride, conv.padding, conv.dilation)
+    if x.dtype == torch.float32 or conv.bias is None:
+        return y
+    return y + cast(conv.bias, x)[:, None, None]
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor) -> torch.Tensor:
+    """``F.linear`` in ``x``'s type; outside float32 the bias is added after
+    the product's rounding, as flax's ``Dense`` adds it."""
+    if x.dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    return F.linear(x, cast(weight, x)) + cast(bias, x)
+
+
 def prelu(x: torch.Tensor, slope: torch.Tensor) -> torch.Tensor:
-    """Parametric ReLU with one slope, ``where(x >= 0, x, a*x)``."""
-    return torch.where(x >= 0, x, slope.reshape(()) * x)
+    """Parametric ReLU with one slope, ``where(x >= 0, x, a*x)``; the slope
+    in ``x``'s type (``densefusion_tpu/models/layers.py:30``)."""
+    return torch.where(x >= 0, x, cast(slope.reshape(()), x) * x)
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -91,10 +124,15 @@ def phase_conv_weight(weight: torch.Tensor) -> torch.Tensor:
     """Compose a 3x3 conv weight (Cout, Cin, 3, 3) with the 2x half-pixel
     upsample into the four phase kernels, HWIO (3, 3, Cin, 4*Cout): output
     channel ``(py*2 + px)*Cout + d`` holds ``K[py,px] = M_py^T W M_px`` for
-    full-res pixel parity (py, px)."""
+    full-res pixel parity (py, px). Composed in the weight's type, so a
+    bf16 weight is composed in bf16 after its cast, as the JAX package
+    composes it (``densefusion_tpu/models/layers.py:99-104``), in its
+    order: the rows' taps (t) first, each contraction rounded to the type,
+    then the columns' (u)."""
     m = weight.new_tensor([UPSAMPLE_TAPS_EVEN, UPSAMPLE_TAPS_ODD])
     cout, cin = weight.shape[:2]
-    pk = torch.einsum("pti,quj,dctu->ijcpqd", m, m, weight)
+    rows = torch.einsum("pti,dctu->dcupi", m, weight)
+    pk = torch.einsum("dcupi,quj->ijcpqd", rows, m)
     return pk.reshape(3, 3, cin, 4 * cout)
 
 
@@ -109,10 +147,11 @@ def phase_conv_phases(x: torch.Tensor, weight: torch.Tensor,
     route (:func:`densefusion_tpu_torch.ops.phase_conv.conv3x3_valid`):
     "kernel" is ``csrc/phase_conv.cu``, "library" ``F.conv2d``, "auto"
     :func:`densefusion_tpu_torch.ops.phase_conv.auto_backend` of the input's
-    device."""
+    device. The weight and bias are cast to ``x``'s type first."""
     xp = F.pad(x, (1, 1, 1, 1), mode="replicate")
-    y = conv3x3_valid_nchw(xp, phase_conv_weight(weight), conv_backend)
-    return y + bias.repeat(4)[:, None, None]
+    y = conv3x3_valid_nchw(xp, phase_conv_weight(cast(weight, x)),
+                           conv_backend)
+    return y + cast(bias, y).repeat(4)[:, None, None]
 
 
 def _edge_upsample_1d(v: torch.Tensor) -> torch.Tensor:
@@ -141,6 +180,7 @@ def phase_upsample_conv3x3(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"unknown border {border!r}")
     b, _, h, w = x.shape
     cout = weight.shape[0]
+    weight = cast(weight, x)
     y = phase_conv_phases(x, weight, bias, conv_backend)
     y = y.reshape(b, 2, 2, cout, h, w).permute(0, 3, 4, 1, 5, 2)
     y = y.reshape(b, cout, 2 * h, 2 * w)
@@ -168,8 +208,10 @@ class Dropout2d(nn.Module):
     kept with probability ``1 - p`` and then scaled by ``1 / (1 - p)``, or
     zeroed whole (``densefusion_tpu/models/layers.py:254``). The mask is
     drawn by ``torch.bernoulli`` from the ``generator`` given to
-    ``forward`` (torch's default generator when it is None). The identity in
-    eval mode."""
+    ``forward`` (torch's default generator when it is None), with float32
+    keep probabilities whatever ``x``'s type (flax's Bernoulli draw takes a
+    Python float; a bf16 0.7 would be 0.69921875), and applied in ``x``'s
+    type. The identity in eval mode."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -183,7 +225,7 @@ class Dropout2d(nn.Module):
             return x
         keep = 1.0 - self.p
         probs = torch.full(x.shape[:2] + (1,) * (x.dim() - 2), keep,
-                           dtype=x.dtype, device=x.device)
+                           dtype=torch.float32, device=x.device)
         mask = torch.bernoulli(probs, generator=generator)
         return torch.where(mask.bool(), x / keep, 0.0)
 

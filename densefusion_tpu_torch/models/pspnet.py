@@ -15,6 +15,11 @@ the JAX package's channel dropout (0.3 after the PSP module, 0.15 after up1
 and after up2), drawn from the generator passed to ``forward``; eval mode
 has none. Module names follow the reference's state_dict keys, and every
 decoder reads the same ones.
+
+``dtype=torch.bfloat16`` computes the trunk, the PSP module, the decoder
+and ``final`` in bf16 (the layers cast their float32 parameters where they
+use them, as the JAX package's ``dtype`` does); the log-softmax stays in
+float32 (``densefusion_tpu/models/pspnet.py:354-357``).
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from densefusion_tpu_torch.models.layers import (
-    UPSAMPLE_TAPS_EVEN, UPSAMPLE_TAPS_ODD, Dropout2d, prelu,
-    adaptive_avg_pool2d, resize_bilinear, phase_conv_phases,
+    UPSAMPLE_TAPS_EVEN, UPSAMPLE_TAPS_ODD, Dropout2d, cast, conv2d, linear,
+    prelu, adaptive_avg_pool2d, resize_bilinear, phase_conv_phases,
     phase_upsample_conv3x3,
 )
 from densefusion_tpu_torch.models.resnet import DilatedResNet
@@ -33,7 +38,9 @@ from densefusion_tpu_torch.models.resnet import DilatedResNet
 
 class PSPModule(nn.Module):
     """Pyramid pooling: adaptive-pool to each size, 1x1 conv, upsample back,
-    concat with the input, 1x1 bottleneck -> relu."""
+    concat with the input, 1x1 bottleneck -> relu. ``features`` is the
+    trunk's width (512 for BasicBlock trunks, 2048 for Bottleneck ones),
+    which the JAX ``PSPModule`` reads from its input."""
 
     def __init__(self, features: int = 512, out_features: int = 1024,
                  sizes=(1, 2, 3, 6)):
@@ -49,10 +56,11 @@ class PSPModule(nn.Module):
 
     def forward(self, x):
         h, w = x.shape[-2:]
-        priors = [resize_bilinear(stage[1](adaptive_avg_pool2d(x, size)),
+        priors = [resize_bilinear(conv2d(stage[1],
+                                         adaptive_avg_pool2d(x, size)),
                                   (h, w))
                   for size, stage in zip(self.sizes, self.stages)]
-        return F.relu(self.bottleneck(torch.cat(priors + [x], dim=1)))
+        return F.relu(conv2d(self.bottleneck, torch.cat(priors + [x], dim=1)))
 
 
 class PSPUpsample(nn.Module):
@@ -88,7 +96,8 @@ class PSPUpsample(nn.Module):
             zero = self.align_corners or self.border == "zero"
             x = F.pad(x, (1, 1, 1, 1),
                       mode="constant" if zero else "replicate")
-            x = F.conv2d(x, conv.weight) + conv.bias[:, None, None]
+            x = F.conv2d(x, cast(conv.weight, x)) \
+                + cast(conv.bias, x)[:, None, None]
         return prelu(x, self.conv[2].weight)
 
 
@@ -189,17 +198,19 @@ class PSPNet(nn.Module):
     reference-exact decoder (``nn.Upsample(align_corners=True)``, zero
     padding, dense) that imported reference weights need; it overrides
     ``fused_decoder``. The PSP priors stay half-pixel in every mode. All
-    modes read the same parameters."""
+    modes read the same parameters. ``dtype`` is the compute type (None:
+    float32); the output is float32 either way."""
 
     def __init__(self, variant: str = "resnet18", emb_dim: int = 32,
                  psp_out: int = 1024, sizes=(1, 2, 3, 6),
-                 fused_decoder: bool = True, align_corners: bool = False):
+                 fused_decoder: bool = True, align_corners: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.fused = fused_decoder and not align_corners
         self.border = "replicate" if self.fused else "zero"
         self.align_corners = align_corners
-        self.feats = DilatedResNet(variant)
-        self.psp = PSPModule(512, psp_out, sizes)
+        self.feats = DilatedResNet(variant, dtype)
+        self.psp = PSPModule(self.feats.out_features, psp_out, sizes)
         self.drop_1 = Dropout2d(0.3)
         self.drop_2 = Dropout2d(0.15)    # after up1 and again after up2
         up = dict(fused=self.fused, border=self.border,
@@ -219,8 +230,8 @@ class PSPNet(nn.Module):
         p = self.drop_2(self.up_1(p), generator)
         p = self.drop_2(self.up_2(p), generator)
         if sample_at is None:
-            p = self.final(self.up_3(p)).permute(0, 2, 3, 1)  # (B, H, W, emb)
-            return F.log_softmax(p.float(), dim=-1)
+            p = conv2d(self.final[0], self.up_3(p)).permute(0, 2, 3, 1)
+            return F.log_softmax(p.float(), dim=-1)           # (B, H, W, emb)
         conv, final = self.up_3.conv[1], self.final[0]
         rows, cols = sample_at // w_full, sample_at % w_full
         if self.fused:
@@ -232,8 +243,9 @@ class PSPNet(nn.Module):
                 taps = sparse_upsample_taps_align(p, rows, cols)
             else:
                 taps = sparse_upsample_taps(p, rows, cols, self.border)
-            g = torch.einsum("bnijc,dcij->bnd", taps, conv.weight) + conv.bias
+            g = torch.einsum("bnijc,dcij->bnd", taps,
+                             cast(conv.weight, taps)) + cast(conv.bias, taps)
         g = prelu(g, self.up_3.conv[2].weight)                  # (B, N, C)
-        p = F.linear(g, final.weight[:, :, 0, 0], final.bias)
+        p = linear(g, final.weight[:, :, 0, 0], final.bias)
         return F.log_softmax(p.float(), dim=-1)
 

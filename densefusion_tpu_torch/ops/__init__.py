@@ -12,6 +12,7 @@ from densefusion_tpu_torch.ops.add_dist import hypothesis_mean_dist
 from densefusion_tpu_torch.ops.phase_conv import (
     conv3x3_valid, conv3x3_valid_nchw, conv3x3_valid_plain,
     conv3x3_valid_plain_nchw, conv3x3_valid_library, phase_conv_kernel,
+    phase_conv_bf16_kernel,
 )
 
 __all__ = ["nearest_neighbor", "nearest_neighbor_plain",
@@ -21,4 +22,4 @@ __all__ = ["nearest_neighbor", "nearest_neighbor_plain",
            "adds_min_sqdist_minus_qsq", "hypothesis_mean_dist",
            "conv3x3_valid", "conv3x3_valid_nchw", "conv3x3_valid_plain",
            "conv3x3_valid_plain_nchw", "conv3x3_valid_library",
-           "phase_conv_kernel"]
+           "phase_conv_kernel", "phase_conv_bf16_kernel"]

@@ -25,7 +25,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("adds_remap", "add_dist", "nn", "phase_conv")
+SOURCES = ("adds_remap", "add_dist", "nn", "phase_conv", "phase_conv_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -30,7 +30,16 @@ up2 48x48x256->256: 2.16 against 4.12 ms, up3 96x96x64->256: 2.43 against
 
 The public :func:`conv3x3_valid` keeps the JAX package's NHWC / HWIO
 signature; the port's NCHW decoder calls :func:`conv3x3_valid_nchw`, which
-pays no transpose. float32 only on the kernel route.
+pays no transpose.
+
+The kernel route takes float32 or bfloat16 operands, both of one type (the
+JAX kernel's ``result_type(xp, pk)``, ``densefusion_tpu/ops/phase_conv.py:
+96``). bfloat16 launches its own kernel, ``csrc/phase_conv_bf16.cu``
+(wrapper :data:`phase_conv_bf16_kernel`, counted apart): bf16 products on
+the tensor cores, float32 sums, the output rounded once to bf16, as the
+Pallas kernel's ``preferred_element_type=jnp.float32`` dot and its final
+``astype`` compute it. Its plain version upcasts to float32, runs the nine
+float32 matmuls and rounds once.
 """
 
 from __future__ import annotations
@@ -64,7 +73,13 @@ def conv3x3_valid_plain_nchw(xp: torch.Tensor,
     Cout) -> (B, Cout, h, w). Nine shifted matmuls over the flat map into
     one sum, ``out_flat[p] = sum_{kh,kw} pk[kh,kw]^T xp_flat[p + kh*(w+2) +
     kw]``, then the phantom columns dropped. The flat range stops two short
-    of ``h*(w+2)`` (the last row's phantoms), so no tap reads past the map."""
+    of ``h*(w+2)`` (the last row's phantoms), so no tap reads past the map.
+    bfloat16 operands are summed in float32 and rounded once, as the bf16
+    kernel sums them."""
+    if xp.dtype == torch.bfloat16:
+        # the bf16 kernel's arithmetic: exact products, float32 sums, one
+        # rounding
+        return conv3x3_valid_plain_nchw(xp.float(), pk.float()).to(xp.dtype)
     b, cin, hp, wp = xp.shape
     h, w = hp - 2, wp - 2
     n = h * wp - 2
@@ -92,21 +107,24 @@ def conv3x3_valid_library(xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
 
 
 class PhaseConvKernel(build.Kernel):
-    """ctypes wrapper of ``csrc/phase_conv.cu``."""
+    """ctypes wrapper of kernel 6 for one operand type: ``csrc/phase_conv.cu``
+    (float32, 3xTF32) or ``csrc/phase_conv_bf16.cu`` (bfloat16)."""
 
-    def __init__(self):
-        super().__init__("phase_conv", "phase_conv", "phase_conv_launch",
+    def __init__(self, dtype: torch.dtype, source: str):
+        super().__init__(source, source, f"{source}_launch",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5)
+        self.dtype = dtype
 
     def __call__(self, xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
-        """xp (B, Cin, h+2, w+2) and pk (3, 3, Cin, Cout), contiguous float32
-        CUDA tensors on one device -> (B, Cout, h, w) float32."""
+        """xp (B, Cin, h+2, w+2) and pk (3, 3, Cin, Cout), contiguous CUDA
+        tensors of this kernel's type on one device -> (B, Cout, h, w) of
+        that type."""
         for name, t in (("xp", xp), ("pk", pk)):
-            if t.dtype != torch.float32 or not t.is_contiguous() \
+            if t.dtype != self.dtype or not t.is_contiguous() \
                     or t.dim() != 4:
                 raise ValueError(f"{self.name} kernel: {name} must be a "
-                                 "contiguous float32 rank-4 tensor, got "
-                                 f"{t.dtype} {tuple(t.shape)}")
+                                 f"contiguous {self.dtype} rank-4 tensor, "
+                                 f"got {t.dtype} {tuple(t.shape)}")
         bsz, cin, hp, wp = xp.shape
         cout = pk.shape[-1]
         if pk.shape[:3] != (3, 3, cin) or hp < 3 or wp < 3 or cout < 1 \
@@ -117,28 +135,36 @@ class PhaseConvKernel(build.Kernel):
                              "*(w+2) < 2^31 and pk (3, 3, Cin, Cout), got "
                              f"{tuple(xp.shape)} and {tuple(pk.shape)}")
         dev = build.cuda_device(self.name, xp, pk)
-        out = torch.empty((bsz, cout, hp - 2, wp - 2), dtype=torch.float32,
+        out = torch.empty((bsz, cout, hp - 2, wp - 2), dtype=self.dtype,
                           device=dev)
         self.launch(dev, xp.data_ptr(), pk.data_ptr(), out.data_ptr(), bsz,
                     cin, cout, hp - 2, wp - 2)
         return out
 
 
-phase_conv_kernel = PhaseConvKernel()
+phase_conv_kernel = PhaseConvKernel(torch.float32, "phase_conv")
+phase_conv_bf16_kernel = PhaseConvKernel(torch.bfloat16, "phase_conv_bf16")
+# the kernel route's kernel per operand type
+KERNELS = {k.dtype: k for k in (phase_conv_kernel, phase_conv_bf16_kernel)}
 
 
 class KernelConv3x3(torch.autograd.Function):
-    """The kernel route: forward is the kernel on CUDA tensors and its plain
-    version on CPU tensors; backward is the library convolution's input and
-    weight gradients on the same tensors, so they equal the library route's
+    """The kernel route: forward is the kernel of the operands' type
+    (:data:`KERNELS`) on CUDA tensors and its plain version on CPU tensors;
+    backward is the library convolution's input and weight gradients on the
+    same tensors, in their type, so they equal the library route's
     (``_conv3x3_bwd``, ``densefusion_tpu/ops/phase_conv.py:156``)."""
 
     @staticmethod
     def forward(ctx, xp, pk):
+        if xp.dtype != pk.dtype or xp.dtype not in KERNELS:
+            raise ValueError(f"phase_conv kernel route: xp and pk must both "
+                             f"be float32 or both bfloat16, got {xp.dtype} "
+                             f"and {pk.dtype}")
         ctx.save_for_backward(xp, pk)
         if xp.device.type == "cpu":
             return conv3x3_valid_plain_nchw(xp, pk)
-        return phase_conv_kernel(xp.contiguous(), pk.contiguous())
+        return KERNELS[xp.dtype](xp.contiguous(), pk.contiguous())
 
     @staticmethod
     def backward(ctx, g):

@@ -55,13 +55,16 @@ class PoseEstimator:
     @classmethod
     def from_checkpoint(cls, path: str, num_obj: int, num_points: int = 500,
                         crop_size: int = 192, refine_iters: int | None = None,
-                        **kwargs) -> "PoseEstimator":
+                        bf16: bool = False, **kwargs) -> "PoseEstimator":
         """An estimator from a checkpoint directory of either package
         (parameters only: ``restore_opt=False``), with the checkpoint's
-        decoder (``decoder_flags()`` of its config). ``refine_iters=None``
-        takes the checkpoint's trained depth (2 when it has no config); an
-        untrained refiner clamps it to 0 with a warning
-        (``clamp_refine_iters``)."""
+        decoder (``decoder_flags()`` of its config); ``bf16=True`` serves
+        with bf16 compute (``densefusion_tpu/serve.py:64,78-86``).
+        ``refine_iters=None`` takes the checkpoint's trained depth (2 when
+        it has no config); an untrained refiner clamps it to 0 with a
+        warning (``clamp_refine_iters``)."""
+        import torch
+
         from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
         from densefusion_tpu_torch.train.checkpoint import (
             clamp_refine_iters, load_state_dicts, peek_config,
@@ -72,10 +75,12 @@ class PoseEstimator:
             refine_iters = getattr(ck_cfg, "refine_iters", None) or 2
         refine_iters = clamp_refine_iters(path, refine_iters)
         flags = ck_cfg.decoder_flags() if ck_cfg is not None else {}
+        dtype = torch.bfloat16 if bf16 else None
         posenet_state, refiner_state = load_state_dicts(path)
-        return cls(PoseNet(num_obj, **flags), PoseRefineNet(num_obj),
-                   posenet_state, refiner_state, num_points=num_points,
-                   crop_size=crop_size, refine_iters=refine_iters, **kwargs)
+        return cls(PoseNet(num_obj, dtype=dtype, **flags),
+                   PoseRefineNet(num_obj, dtype=dtype), posenet_state,
+                   refiner_state, num_points=num_points, crop_size=crop_size,
+                   refine_iters=refine_iters, **kwargs)
 
     # -- host-side assembly ----------------------------------------------
 

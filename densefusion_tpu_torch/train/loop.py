@@ -80,7 +80,11 @@ def build_dataset(cfg: RunConfig, mode: str, refine: bool):
 class Trainer:
     """The curriculum trainer on ``device`` (``None`` means CUDA, which
     must be present; ``"cpu"`` for the CPU). Options the port lacks are
-    refused by ``check_ported`` here, before any work."""
+    refused by ``check_ported`` here, before any work. ``cfg.bf16_compute``
+    builds both networks with bf16 compute and ``cfg.remat_cnn`` the PoseNet
+    with its CNN recomputed in the backward pass
+    (``densefusion_tpu/train/loop.py:85-91``); parameters, gradients, Adam
+    state and checkpoints stay float32."""
 
     def __init__(self, cfg: RunConfig, posenet: Optional[PoseNet] = None,
                  refiner: Optional[PoseRefineNet] = None,
@@ -88,9 +92,13 @@ class Trainer:
         check_ported(cfg, device)
         self.cfg = cfg
         self.device = resolve_device(device)
+        dtype = torch.bfloat16 if cfg.bf16_compute else None
         self.posenet = posenet or PoseNet(num_obj=cfg.num_objects,
+                                          dtype=dtype,
+                                          remat_cnn=cfg.remat_cnn,
                                           **cfg.decoder_flags())
-        self.refiner = refiner or PoseRefineNet(num_obj=cfg.num_objects)
+        self.refiner = refiner or PoseRefineNet(num_obj=cfg.num_objects,
+                                                dtype=dtype)
         self.dataset_factory = dataset_factory
         self.curriculum = Curriculum(lr=cfg.lr, w=cfg.w)
         self.state = None

@@ -110,6 +110,8 @@ KNN_BACKENDS = ("auto", "pallas", "xla")
 def check_ported(cfg: RunConfig, device=None) -> None:
     """Raise ``NotImplementedError`` for a field value whose option the port
     does not run yet, naming the ROADMAP.md section that queues it.
+    ``bf16_compute`` and ``remat_cnn`` run (the ``Trainer`` builds its
+    networks from them).
 
     ``knn_backend`` keeps its JAX meaning as far as the port has one: on the
     CPU every value runs the plain versions (the JAX test configs use
@@ -117,13 +119,6 @@ def check_ported(cfg: RunConfig, device=None) -> None:
     ``"pallas"`` run the Hopper kernels, and ``"xla"``, which asks for the
     plain path on the accelerator, is refused: a wrapper takes its plain
     version only for CPU tensors."""
-    if cfg.bf16_compute:
-        raise NotImplementedError(
-            "bf16_compute=True is not ported yet (ROADMAP.md §1 E); the "
-            "port trains and serves in float32")
-    if cfg.remat_cnn:
-        raise NotImplementedError(
-            "remat_cnn=True is not ported yet (ROADMAP.md §1 E)")
     if cfg.knn_backend not in KNN_BACKENDS:
         raise ValueError(f"unknown knn_backend {cfg.knn_backend!r} "
                          f"(expected one of {KNN_BACKENDS})")

@@ -4,7 +4,7 @@ decoder's three half-res phase-conv shapes (B=64, float32, TF32 off), and
 the whole ``phase_upsample_conv3x3`` stages under both conv backends: the
 counterpart of ``examples/tpu_up1_pallas.py``.
 
-    python3 examples/gpu_phase_conv.py [out.json]
+    python3 examples/gpu_phase_conv.py [out.json] [--parent DIR]
 
 Shapes (``chip_smoke.DECODER_CONVS``, 192 px crops):
 
@@ -23,13 +23,24 @@ under ``conv_backend="library"`` and ``"kernel"``; ``"auto"`` is the
 kernel on the card. Last, the serving pipeline at B=64, K=2 (``chip_smoke``'s
 estimator and batch) in turns with ``"auto"`` resolved to the library and
 to the kernel, so the end-to-end gain is read on one card and one host.
+The bf16 route (``csrc/phase_conv_bf16.cu``) is timed the same way against
+``F.conv2d`` in bf16, beside its bound at the dense bf16 peak.
+
+``--parent DIR``: another checkout's ``csrc/phase_conv.cu`` (``git
+archive`` it into a gitignored ``_work/``), built into a directory of its
+own and timed in turns with this checkout's float32 kernel (parent,
+change, change, parent) on the same inputs, with the largest difference
+between their outputs: whether the float32 route moved.
 Prints one JSON object and, given a path, writes it there.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -43,7 +54,7 @@ import chip_smoke as cs  # noqa: E402
 from densefusion_tpu_torch.models.layers import (  # noqa: E402
     phase_upsample_conv3x3,
 )
-from densefusion_tpu_torch.ops import phase_conv  # noqa: E402
+from densefusion_tpu_torch.ops import build, phase_conv  # noqa: E402
 
 
 def in_turns(first, second, iters: int) -> dict:
@@ -91,7 +102,36 @@ def pipeline_in_turns() -> dict:
                              "kernel": cs.BATCH * 1e3 / t["second_ms"]}}
 
 
+def parent_kernel(parent: Path):
+    """The float32 kernel-6 entry point of another checkout, built from its
+    ``csrc/`` into a temporary directory: ``fn(xp, pk) -> out``."""
+    out = Path(tempfile.mkdtemp(prefix="phase_conv_parent_"))
+    build.build_all(("phase_conv",), csrc=parent / "densefusion_tpu_torch"
+                    / "csrc", build=out)
+    lib = ctypes.CDLL(str(build.library_path(
+        "phase_conv", parent / "densefusion_tpu_torch" / "csrc", out)))
+    fn = lib.phase_conv_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(xp, pk):
+        b, cin, hp, wp = xp.shape
+        o = torch.empty((b, pk.shape[-1], hp - 2, wp - 2), device=xp.device)
+        err = fn(xp.data_ptr(), pk.data_ptr(), o.data_ptr(), b, cin,
+                 pk.shape[-1], hp - 2, wp - 2,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent phase_conv launch failed: {err}")
+        return o
+    return call
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("out", nargs="?", default=None)
+    ap.add_argument("--parent", type=Path, default=None)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     from densefusion_tpu_torch.device import precision_policy, resolve_device
@@ -99,7 +139,8 @@ def main() -> None:
     gen = torch.Generator("cuda").manual_seed(cs.SEED)
     b = cs.BATCH
     result = {"card": cs.card_line(), "precision": precision_policy(),
-              "batch": b, "conv": {}, "stage": {}}
+              "batch": b, "conv": {}, "stage": {}, "bf16": {}, "parent": {}}
+    parent = parent_kernel(args.parent) if args.parent else None
     for name, hw, cin, cout in cs.DECODER_CONVS:
         xp = torch.randn((b, cin, hw + 2, hw + 2), device=dev, generator=gen)
         pk = torch.randn((3, 3, cin, cout), device=dev,
@@ -118,6 +159,27 @@ def main() -> None:
             "kernel_over_library": t["second_ms"] / t["first_ms"],
             "rel_diff": rel_diff(phase_conv.phase_conv_kernel(xp, pk),
                                  F.conv2d(xp, w_oihw))}
+        if parent is not None:
+            runs = [cs.graph_ms(lambda: fn(xp, pk), replays=20)
+                    for fn in (parent, phase_conv.phase_conv_kernel,
+                               phase_conv.phase_conv_kernel, parent)]
+            result["parent"][name] = {
+                "parent_ms": (runs[0] + runs[3]) / 2,
+                "change_ms": (runs[1] + runs[2]) / 2, "readings_ms": runs,
+                "max_abs_diff": float((parent(xp, pk) - phase_conv
+                                       .phase_conv_kernel(xp, pk))
+                                      .abs().max())}
+        xb, pb = xp.to(torch.bfloat16), pk.to(torch.bfloat16)
+        wb = pb.permute(3, 2, 0, 1).contiguous()
+        t = in_turns(lambda: F.conv2d(xb, wb),
+                     lambda: phase_conv.phase_conv_bf16_kernel(xb, pb),
+                     iters=10)
+        bound, by = cs.conv_bound_ms(b, hw, hw, cin, cout, "bf16")
+        result["bf16"][name] = {
+            "library_ms": t["first_ms"], "kernel_ms": t["second_ms"],
+            "readings_ms": t["readings_ms"], "bound_ms": bound,
+            "bound_by": by, "kernel_over_bound": t["second_ms"] / bound,
+            "kernel_over_library": t["second_ms"] / t["first_ms"]}
 
         # the whole stage (replicate border), one quarter the phase channels
         x = torch.randn((b, cin, hw, hw), device=dev, generator=gen)
@@ -140,9 +202,9 @@ def main() -> None:
     result["pipeline"] = pipeline_in_turns()
     text = json.dumps(result, indent=1)
     print(text)
-    if len(sys.argv) > 1:
-        Path(sys.argv[1]).parent.mkdir(parents=True, exist_ok=True)
-        Path(sys.argv[1]).write_text(text)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(text)
 
 
 if __name__ == "__main__":

@@ -8,9 +8,11 @@ Pure arithmetic, no card needed. A bound is the larger of the operations
 over the card's peak rate for their type and the bytes (each input read
 once, each output written once) over its memory rate; the rates are the
 data-sheet peaks ``chip_smoke.py`` uses (67 TFLOP/s fp32 outside the tensor
-cores, 494.7 TFLOP/s dense TF32 on them, 3.35 TB/s). Kernel 6 gets two:
-its own arithmetic's (three TF32 products per product, 3xTF32) and the
-FFMA bound of a float32 kernel on the CUDA cores. The bounds come from
+cores, 494.7 TFLOP/s dense TF32 and 989 TFLOP/s dense bf16 on them, 3.35
+TB/s). Kernel 6's float32 route gets two: its own arithmetic's (three TF32
+products per product, 3xTF32) and the FFMA bound of a float32 kernel on
+the CUDA cores; its bf16 route one product per product on bf16 operands,
+at the serving (B=64) and training (B=32) batches. The bounds come from
 ``chip_smoke.py``'s own functions, which it also reports beside their
 measured times.
 """
@@ -46,7 +48,12 @@ def main() -> None:
           f"B={cs.BATCH}, {hw}x{hw}, {cin} -> {cout}, float32",
           cs.conv_bound_ms(cs.BATCH, hw, hw, cin, cout, arith))
          for name, hw, cin, cout in cs.DECODER_CONVS
-         for arith in ("3xtf32", "ffma")]
+         for arith in ("3xtf32", "ffma")] + [
+        ("6 _conv_kernel (bf16)", f"{name}'s phase conv, B={bsz}, "
+         f"{hw}x{hw}, {cin} -> {cout}, bfloat16",
+         cs.conv_bound_ms(bsz, hw, hw, cin, cout, "bf16"))
+        for bsz in cs.BF16_CONV_BATCHES
+        for name, hw, cin, cout in cs.DECODER_CONVS]
     for kernel, shape, (ms, by) in rows:
         print(json.dumps({"kernel": kernel, "shape": shape, "bound_ms": ms,
                           "bound_by": by}))

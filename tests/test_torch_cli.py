@@ -2,9 +2,10 @@
 
 * ``cli.train``'s parser has the JAX parser's options and defaults (plus
   ``--device``); the options the port lacks raise ``NotImplementedError``
-  naming their ROADMAP.md section; one epoch writes a checkpoint that the
-  JAX package's ``load_checkpoint(restore_opt=True)`` restores into the
-  structures its own ``PoseNet`` / ``PoseRefineNet`` / Adam have;
+  naming their ROADMAP.md section, and ``--bf16`` / ``--remat_cnn`` train;
+  one epoch writes a checkpoint that the JAX package's
+  ``load_checkpoint(restore_opt=True)`` restores into the structures its
+  own ``PoseNet`` / ``PoseRefineNet`` / Adam have;
 * ``cli.eval_linemod`` on a JAX-written checkpoint (weights from a numpy
   seed, a synthetic two-object LineMOD root with the symmetric eggbox):
   per-frame refined distances and per-object per-pixel means equal to the
@@ -101,12 +102,41 @@ def test_parsers_match_jax(name):
 
 
 @pytest.mark.parametrize("flags,section", [
-    (["--bf16"], "§1 E"), (["--remat_cnn"], "§1 E"),
     (["--data_parallel"], "§1 D"), (["--trace_dir", "x"], "§1 G")])
 def test_unported_options_raise(root, tmp_path, flags, section):
     with pytest.raises(NotImplementedError, match=section):
         train.main(["--dataset_root", root, "--out_dir", str(tmp_path),
                     "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags,section", [
+    (["--bf16"], "§1 E"), (["--remat_cnn"], "§1 E")])
+def test_precision_options_run(root, tmp_path, flags, section):
+    """``--bf16`` and ``--remat_cnn`` (ROADMAP.md ``section``, refused
+    until it was ported) train one epoch: the config records them, the
+    networks run them, and the checkpoint holds float32 parameters that
+    the port loads back."""
+    import torch
+
+    from densefusion_tpu_torch.train import load_state_dicts
+
+    out = str(tmp_path / "out")
+    tr = train.main([
+        "--dataset", "linemod", "--dataset_root", root, "--objlist", "1",
+        "10", "--nepoch", "1", "--repeat_epoch", "1", "--batch_size", "2",
+        "--workers", "1", "--crop_size", "32", "--num_points", "32",
+        "--out_dir", out, "--log_dir", str(tmp_path / "logs"),
+        "--device", "cpu", *flags])
+    assert tr.curriculum.epoch == 2
+    assert tr.cfg.bf16_compute == ("--bf16" in flags)
+    assert tr.cfg.remat_cnn == ("--remat_cnn" in flags)
+    assert tr.posenet.feat.dtype == (torch.bfloat16 if "--bf16" in flags
+                                     else None)
+    assert tr.posenet.remat_cnn == ("--remat_cnn" in flags)
+    pose, ref = load_state_dicts(os.path.join(out, "linemod",
+                                              "checkpoint_current"))
+    assert all(v.dtype == torch.float32 for v in {**pose, **ref}.values())
+    tr.posenet.load_state_dict(pose, strict=True)
 
 
 def test_train_cli_checkpoint_loads_in_jax(root, tmp_path):
@@ -218,6 +248,31 @@ def test_from_checkpoint_matches_jax(root, jax_ck):
     want = jest.estimate_batch([JPoseSample(*s) for s in samples])
     for g, w in zip(got[:3], want[:3]):
         np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=1e-4)
+
+
+def test_from_checkpoint_bf16(root, jax_ck):
+    """``from_checkpoint(bf16=True)`` serves with bf16 compute on the
+    checkpoint's float32 weights: float32 poses, near the float32
+    estimator's by the JAX package's bf16 criterion (``tests/test_bf16.py``:
+    max difference below 0.5)."""
+    import torch
+
+    ds = LineModDataset(root, mode="test", num_points=N, crop_size=CROP,
+                        objlist=list(OBJLIST))
+    samples = [ds[i] for i in range(4)]
+    kw = dict(num_points=N, crop_size=CROP, device="cpu")
+    est = PoseEstimator.from_checkpoint(jax_ck["path"], len(OBJLIST),
+                                        bf16=True, **kw)
+    est32 = PoseEstimator.from_checkpoint(jax_ck["path"], len(OBJLIST), **kw)
+    pipe = est.pipeline
+    assert pipe.posenet.feat.dtype == pipe.refiner.feat.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in pipe.posenet.parameters())
+    got, want = est.estimate_batch(samples), est32.estimate_batch(samples)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == np.float32 and np.isfinite(g).all()
+        assert np.abs(g - w).max() < 0.5
+    np.testing.assert_allclose(np.linalg.norm(got[0], axis=1), 1.0,
+                               atol=1e-5)
 
 
 def test_from_checkpoint_clamps_a_phase1_checkpoint(jax_ck, tmp_path):

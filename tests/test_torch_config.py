@@ -61,14 +61,37 @@ def test_jax_config_json_loads_and_round_trips():
 
 
 @pytest.mark.parametrize("field,value,section", [
-    ("bf16_compute", True, "§1 E"),
-    ("remat_cnn", True, "§1 E"),
     ("knn_backend", "xla", "Rules of the port"),
 ])
 def test_unported_options_raise(field, value, section):
     check_ported(RunConfig.preset("ycb"))
     with pytest.raises(NotImplementedError, match=section):
         check_ported(RunConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value,section", [
+    ("bf16_compute", True, "§1 E"),
+    ("remat_cnn", True, "§1 E"),
+])
+def test_precision_options_run(tmp_path, field, value, section):
+    """The options of ROADMAP.md ``section`` (refused until it was
+    ported) pass ``check_ported`` on both devices, and the ``Trainer``
+    builds its networks from them: bf16 compute in both networks, or the
+    PoseNet's CNN recomputed in the backward pass; parameters stay
+    float32."""
+    import torch
+
+    from densefusion_tpu_torch.train import Trainer
+
+    cfg = RunConfig(**{field: value}, log_dir=str(tmp_path))
+    check_ported(cfg, device="cpu")
+    check_ported(cfg, device="cuda:0")
+    tr = Trainer(cfg, device="cpu")
+    bf16 = torch.bfloat16 if cfg.bf16_compute else None
+    assert tr.posenet.feat.dtype == tr.refiner.feat.dtype == bf16
+    assert tr.posenet.cnn.model.module.feats.dtype == bf16
+    assert tr.posenet.remat_cnn == cfg.remat_cnn
+    assert all(p.dtype == torch.float32 for p in tr.posenet.parameters())
 
 
 def test_ported_options_pass():

@@ -176,6 +176,33 @@ def test_phase_conv_kernel_matches_plain():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (8, 48, 48, 256, 256),    # up2's shape at B=8 (TMA weights)
+    (2, 12, 10, 130, 5),      # ragged: Cout 5 takes the plain-load weights
+    (1, 5, 7, 3, 9),          # tiny odd map, Cin below one wgmma depth
+])
+def test_phase_conv_bf16_kernel_matches_plain(b, h, w, cin, cout):
+    """Kernel 6's bf16 route against its plain version (float32 sums of the
+    bf16 products, one rounding): every element within one bf16 ulp
+    (``chip_smoke.bf16_ulps``), bf16 out, one launch counted."""
+    dev = _cuda()
+    import chip_smoke
+
+    gen = torch.Generator(dev).manual_seed(7)
+    xp = torch.randn((b, cin, h + 2, w + 2), device=dev,
+                     generator=gen).to(torch.bfloat16)
+    pk = (torch.randn((3, 3, cin, cout), device=dev, generator=gen)
+          / np.sqrt(9 * cin)).to(torch.bfloat16)
+    before = phase_conv.phase_conv_bf16_kernel.launches
+    got = phase_conv.phase_conv_bf16_kernel(xp, pk)
+    want = phase_conv.conv3x3_valid_plain_nchw(xp, pk)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert chip_smoke.bf16_ulps(got, want) <= 1.0
+    assert phase_conv.phase_conv_bf16_kernel.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_knn_ties_lowest_index_first_on_card():
     """``knn(k=3)`` on CUDA tensors against 150 refs duplicated: the exact
     ties come lowest index first, as the JAX ``knn`` orders them."""

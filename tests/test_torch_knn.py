@@ -334,8 +334,8 @@ def tiny_ycb_root(tmp_path_factory):
 def test_bench_data_cli_on_cpu(capsys, tiny_ycb_root, what):
     """``--what loader`` / ``train_e2e`` with ``--device cpu`` on a tiny
     synthetic YCB root: the JAX ``bench_loader`` / ``bench_train_e2e``
-    keys (plus the device, and float32 for training), positive rates, one
-    JSON object printed."""
+    keys (plus the device, and bfloat16 compute for training, as the JAX
+    benchmark's), positive rates, one JSON object printed."""
     import json
 
     args = ["--what", what, "--device", "cpu", "--dataset_root",
@@ -356,7 +356,7 @@ def test_bench_data_cli_on_cpu(capsys, tiny_ycb_root, what):
     if what == "loader":
         assert 0 < out["loader_cache_hit_rate"] <= 1
     else:
-        assert out["dtype"] == "float32" and out["train_e2e_batch"] == 2
+        assert out["dtype"] == "bfloat16" and out["train_e2e_batch"] == 2
         assert 0 <= out["train_e2e_input_bound_fraction"] < 1
         assert out["train_e2e_frames_per_s"] == pytest.approx(
             2 * out["train_e2e_steps_per_s"])
