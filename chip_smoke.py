@@ -128,10 +128,12 @@ fails. Phases, in order:
    classes) beside its FLOP bound; ``cli.verify_fat`` and
    ``cli.reconstruct_fat`` on a generated FAT scene;
    4l. bf16 compute and the model options: kernel 6's bf16 route
-   (``csrc/phase_conv_bf16.cu``) against its plain bf16 version at the
-   decoder's three shapes at B=64 and B=32 and three ragged shapes, every
-   element within one bf16 ulp, timed by graph replay in turns with
-   ``F.conv2d`` in bf16 beside its bound at the dense bf16 peak;
+   (``csrc/phase_conv_bf16.cu``, channels-last padded map) against its
+   plain bf16 version at the decoder's three shapes at B=64, B=32 and B=1
+   (``bench_latency``'s) and five ragged shapes, every element within one
+   bf16 ulp, timed by graph replay in turns with ``F.conv2d`` in bf16 on
+   the same channels-last map (and once on the NCHW map, the layout the
+   earlier bf16 kernel took) beside its bound at the dense bf16 peak;
    ``estimate_batch`` at B=64, K=2 with bf16 compute on the serving
    weights (float32 outputs; raw outputs against the card's float32 ones
    by the JAX package's bf16 criteria; the bf16 route 3 launches, the
@@ -234,13 +236,16 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-# [4l]: kernel 6's bf16 route at the decoder's shapes at these batches,
-# and at ragged shapes (Cout 5 and 9 take its plain-load weight path, the
-# others TMA); the resnet50 PoseNet's batch
-BF16_CONV_BATCHES, R50_BATCH = (BATCH, TRAIN_BATCH), 8
+# [4l]: kernel 6's bf16 route at the decoder's shapes at these batches
+# (B=1: bench_latency's), and at ragged shapes (Cin 130 and 3 take its
+# plain-load input path, Cout 5 and 9 its plain-load weights, the others
+# TMA); the resnet50 PoseNet's batch
+BF16_CONV_BATCHES, R50_BATCH = (BATCH, TRAIN_BATCH, 1), 8
 BF16_RAGGED = (("ragged Cin 130, Cout 5", 2, 12, 10, 130, 5),
                ("ragged 5x7 map, Cin 3, Cout 9", 1, 5, 7, 3, 9),
-               ("ragged Cout 96", 1, 24, 24, 64, 96))
+               ("ragged Cout 96", 1, 24, 24, 64, 96),
+               ("3x4 map (below one tile), Cin 96", 1, 3, 4, 96, 64),
+               ("odd 7x9 map, Cin 40, Cout 136", 3, 7, 9, 40, 136))
 
 
 def log(msg: str) -> None:
@@ -2274,11 +2279,14 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def check_phase_conv_bf16(phase_conv, gen, card: str) -> dict:
     """[4l] 1: kernel 6's bf16 route against its plain bf16 version (float32
-    sums, one rounding) at the decoder's three shapes at B=64 and B=32 and
-    at ragged shapes: every element within one bf16 ulp (:func:`bf16_ulps`).
-    At the decoder's shapes, its device time by CUDA-graph replay in turns
-    with ``F.conv2d`` in bf16 (library, kernel, kernel, library), the plain
-    version's, and the bound at the dense bf16 peak."""
+    sums, one rounding) at the decoder's three shapes at B=64, B=32 and B=1
+    and at ragged shapes: every element within one bf16 ulp
+    (:func:`bf16_ulps`). The padded map is channels-last, the layout the
+    kernel takes. At the decoder's shapes, its device time by CUDA-graph
+    replay in turns with ``F.conv2d`` in bf16 on the same map (library,
+    kernel, kernel, library), ``F.conv2d`` once more on the map's NCHW
+    copy (the earlier bf16 kernel's layout), the plain version's time,
+    and the bound at the dense bf16 peak."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -2290,7 +2298,8 @@ def check_phase_conv_bf16(phase_conv, gen, card: str) -> dict:
     results, worst_abs = {}, 0.0
     for name, bsz, h, w, cin, cout, timed in cases:
         xp = torch.randn((bsz, cin, h + 2, w + 2), device=dev,
-                         generator=gen).to(torch.bfloat16)
+                         generator=gen).to(torch.bfloat16).contiguous(
+                             memory_format=torch.channels_last)
         pk = (torch.randn((3, 3, cin, cout), device=dev, generator=gen)
               / np.sqrt(9 * cin)).to(torch.bfloat16)
         got = phase_conv.phase_conv_bf16_kernel(xp, pk)
@@ -2305,29 +2314,37 @@ def check_phase_conv_bf16(phase_conv, gen, card: str) -> dict:
         worst_abs = max(worst_abs, err)
         entry = {"max_ulps": ulps, "max_abs_err": err}
         if timed:
-            w_oihw = pk.permute(3, 2, 0, 1).contiguous()
+            # the OIHW weight in the map's layout, so cuDNN converts neither
+            w_cl = pk.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
             readings = [
-                graph_ms(lambda: F.conv2d(xp, w_oihw), replays=20)
+                graph_ms(lambda: F.conv2d(xp, w_cl), replays=20)
                 if fn == "library" else
                 graph_ms(lambda: phase_conv.phase_conv_bf16_kernel(xp, pk),
                          replays=20)
                 for fn in ("library", "kernel", "kernel", "library")]
             k_ms = (readings[1] + readings[2]) / 2
             l_ms = (readings[0] + readings[3]) / 2
+            x_nchw, w_oihw = xp.contiguous(), pk.permute(3, 2, 0, 1) \
+                .contiguous()
+            ln_ms = graph_ms(lambda: F.conv2d(x_nchw, w_oihw), replays=20)
             p_ms = cuda_ms(lambda: phase_conv.conv3x3_valid_plain_nchw(
                 xp, pk), iters=3, warmup=1)
             bnd, by = conv_bound_ms(bsz, h, w, cin, cout, "bf16")
             entry.update({"ms": k_ms, "library_ms": l_ms, "plain_ms": p_ms,
                           "kernel_over_library": k_ms / l_ms,
+                          "library_nchw_ms": ln_ms,
+                          "kernel_over_library_nchw": k_ms / ln_ms,
                           "readings_ms": {"library": readings[::3],
                                           "kernel": readings[1:3]},
                           "bound_ms": bnd, "bound_by": by,
                           "bound_arithmetic": "bf16"})
             log(f"[4l] phase_conv bf16 {name}: kernel {k_ms:.4f} ms (graph "
-                f"replays), F.conv2d bf16 {l_ms:.4f} ms, kernel / library "
-                f"{k_ms / l_ms:.3f}; plain {p_ms:.4f} ms; bound {bnd:.4f} ms "
-                f"(bf16 at 989 TFLOP/s, {by}), {k_ms / bnd:.2f}x it; "
-                f"{ulps:.0f} ulp from plain; card {card}")
+                f"replays), F.conv2d bf16 {l_ms:.4f} ms on the same "
+                f"channels-last map (kernel / library {k_ms / l_ms:.3f}), "
+                f"{ln_ms:.4f} ms on its NCHW copy ({k_ms / ln_ms:.3f}); "
+                f"plain {p_ms:.4f} ms; bound {bnd:.4f} ms (bf16 at 989 "
+                f"TFLOP/s, {by}), {k_ms / bnd:.2f}x it; {ulps:.0f} ulp from "
+                f"plain; card {card}")
         else:
             log(f"[4l] phase_conv bf16 kernel == plain on {name}: "
                 f"{ulps:.0f} ulp, max abs err {err:.3g}")
@@ -3544,7 +3561,9 @@ def run() -> None:
         "bound_ms": up1_bf16["bound_ms"], "bound_by": up1_bf16["bound_by"],
         "library_ms": up1_bf16["library_ms"],
         "kernel_over_library": up1_bf16["kernel_over_library"],
-        "library_note": "F.conv2d in bf16 on the same padded input, VALID",
+        "library_nchw_ms": up1_bf16["library_nchw_ms"],
+        "library_note": "F.conv2d in bf16 on the same channels-last padded "
+                        "input, VALID (library_nchw_ms: on its NCHW copy)",
         "shape": "up1 (B=64, 24x24, 1024 -> 1024), bf16",
         "by_shape": bf16_conv["by_shape"], "parity": "ok",
         "build_s": build_s,

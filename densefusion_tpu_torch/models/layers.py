@@ -17,7 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from densefusion_tpu_torch.ops.phase_conv import conv3x3_valid_nchw
+from densefusion_tpu_torch.ops.phase_conv import (
+    conv3x3_valid_nchw, replicate_pad,
+)
 
 # 1-D tap->source weights of the half-pixel 2x bilinear upsample, per output
 # parity: rows = conv taps (y-1, y, y+1) of output pixel y, cols = half-res
@@ -147,8 +149,11 @@ def phase_conv_phases(x: torch.Tensor, weight: torch.Tensor,
     route (:func:`densefusion_tpu_torch.ops.phase_conv.conv3x3_valid`):
     "kernel" is ``csrc/phase_conv.cu``, "library" ``F.conv2d``, "auto"
     :func:`densefusion_tpu_torch.ops.phase_conv.auto_backend` of the input's
-    device. The weight and bias are cast to ``x``'s type first."""
-    xp = F.pad(x, (1, 1, 1, 1), mode="replicate")
+    device. The weight and bias are cast to ``x``'s type first. The padded
+    map is in the layout the route takes
+    (:func:`densefusion_tpu_torch.ops.phase_conv.replicate_pad`:
+    channels-last for the bf16 kernel)."""
+    xp = replicate_pad(x, conv_backend)
     y = conv3x3_valid_nchw(xp, phase_conv_weight(cast(weight, x)),
                            conv_backend)
     return y + cast(bias, y).repeat(4)[:, None, None]

@@ -39,7 +39,12 @@ JAX kernel's ``result_type(xp, pk)``, ``densefusion_tpu/ops/phase_conv.py:
 the tensor cores, float32 sums, the output rounded once to bf16, as the
 Pallas kernel's ``preferred_element_type=jnp.float32`` dot and its final
 ``astype`` compute it. Its plain version upcasts to float32, runs the nine
-float32 matmuls and rounds once.
+float32 matmuls and rounds once. The bf16 kernel takes its padded map
+channels-last (the JAX kernel's NHWC; the public NHWC
+:func:`conv3x3_valid`'s NCHW view already is), so a position's channels
+are one row of its K-major tile and nothing is transposed; its wrapper
+raises on any other layout, and :func:`replicate_pad` writes the decoder's
+padded map so in the one copy the pad makes.
 """
 
 from __future__ import annotations
@@ -108,22 +113,28 @@ def conv3x3_valid_library(xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
 
 class PhaseConvKernel(build.Kernel):
     """ctypes wrapper of kernel 6 for one operand type: ``csrc/phase_conv.cu``
-    (float32, 3xTF32) or ``csrc/phase_conv_bf16.cu`` (bfloat16)."""
+    (float32, 3xTF32; xp contiguous NCHW) or ``csrc/phase_conv_bf16.cu``
+    (bfloat16; xp channels-last)."""
 
-    def __init__(self, dtype: torch.dtype, source: str):
+    def __init__(self, dtype: torch.dtype, source: str,
+                 layout: torch.memory_format = torch.contiguous_format):
         super().__init__(source, source, f"{source}_launch",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5)
         self.dtype = dtype
+        self.layout = layout
 
     def __call__(self, xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
-        """xp (B, Cin, h+2, w+2) and pk (3, 3, Cin, Cout), contiguous CUDA
-        tensors of this kernel's type on one device -> (B, Cout, h, w) of
-        that type."""
-        for name, t in (("xp", xp), ("pk", pk)):
-            if t.dtype != self.dtype or not t.is_contiguous() \
-                    or t.dim() != 4:
+        """xp (B, Cin, h+2, w+2) in this kernel's layout and pk (3, 3, Cin,
+        Cout) contiguous, CUDA tensors of this kernel's type on one device
+        -> (B, Cout, h, w) of that type, contiguous."""
+        for name, t, fmt in (("xp", xp, self.layout),
+                             ("pk", pk, torch.contiguous_format)):
+            if t.dtype != self.dtype or t.dim() != 4 \
+                    or not t.is_contiguous(memory_format=fmt):
+                what = "channels-last" if fmt == torch.channels_last \
+                    else "contiguous"
                 raise ValueError(f"{self.name} kernel: {name} must be a "
-                                 f"contiguous {self.dtype} rank-4 tensor, "
+                                 f"{what} {self.dtype} rank-4 tensor, "
                                  f"got {t.dtype} {tuple(t.shape)}")
         bsz, cin, hp, wp = xp.shape
         cout = pk.shape[-1]
@@ -134,6 +145,12 @@ class PhaseConvKernel(build.Kernel):
                              "with h, w, Cin >= 1, 1 <= B <= 65535, Cin*(h+2)"
                              "*(w+2) < 2^31 and pk (3, 3, Cin, Cout), got "
                              f"{tuple(xp.shape)} and {tuple(pk.shape)}")
+        # the channels-last kernel counts the batch's flat positions (its
+        # TMA rows) in 32 bits
+        if self.layout == torch.channels_last \
+                and bsz * hp * wp >= 2 ** 31 - 2 ** 10:
+            raise ValueError(f"{self.name} kernel: need B*(h+2)*(w+2) < "
+                             f"2^31 - 2^10, got {tuple(xp.shape)}")
         dev = build.cuda_device(self.name, xp, pk)
         out = torch.empty((bsz, cout, hp - 2, wp - 2), dtype=self.dtype,
                           device=dev)
@@ -143,7 +160,8 @@ class PhaseConvKernel(build.Kernel):
 
 
 phase_conv_kernel = PhaseConvKernel(torch.float32, "phase_conv")
-phase_conv_bf16_kernel = PhaseConvKernel(torch.bfloat16, "phase_conv_bf16")
+phase_conv_bf16_kernel = PhaseConvKernel(torch.bfloat16, "phase_conv_bf16",
+                                         torch.channels_last)
 # the kernel route's kernel per operand type
 KERNELS = {k.dtype: k for k in (phase_conv_kernel, phase_conv_bf16_kernel)}
 
@@ -164,7 +182,11 @@ class KernelConv3x3(torch.autograd.Function):
         ctx.save_for_backward(xp, pk)
         if xp.device.type == "cpu":
             return conv3x3_valid_plain_nchw(xp, pk)
-        return KERNELS[xp.dtype](xp.contiguous(), pk.contiguous())
+        kernel = KERNELS[xp.dtype]
+        if kernel.layout == torch.contiguous_format:
+            xp = xp.contiguous()
+        # else the map stays as it came: the wrapper raises on another layout
+        return kernel(xp, pk.contiguous())
 
     @staticmethod
     def backward(ctx, g):
@@ -181,6 +203,23 @@ def auto_backend(device: torch.device) -> str:
     ``"library"`` elsewhere (the measured reason is in the module
     docstring)."""
     return "kernel" if torch.device(device).type == "cuda" else "library"
+
+
+def replicate_pad(x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """``x`` (B, C, h, w) padded by one with its edge values: the map that
+    :func:`conv3x3_valid_nchw` on ``backend`` takes. For the bf16 kernel
+    (:data:`phase_conv_bf16_kernel`) it is written channels-last in the
+    pad's one copy: (B, h, w, C) seen as one 5-D volume, whose replicate pad
+    of its first two spatial axes stores the channels innermost. Otherwise
+    it is ``F.pad``'s contiguous map, as before."""
+    if backend == "auto":
+        backend = auto_backend(x.device)
+    kernel = KERNELS.get(x.dtype)
+    if backend == "kernel" and kernel is not None \
+            and kernel.layout == torch.channels_last:
+        return F.pad(_nhwc(x)[None], (0, 0, 1, 1, 1, 1),
+                     mode="replicate")[0].permute(0, 3, 1, 2)
+    return F.pad(x, (1, 1, 1, 1), mode="replicate")
 
 
 def conv3x3_valid_nchw(xp: torch.Tensor, pk: torch.Tensor,

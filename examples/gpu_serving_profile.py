@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes on the PyTorch port's serving path, on one CUDA card.
 
-    python3 examples/gpu_serving_profile.py [out.json]
+    python3 examples/gpu_serving_profile.py [out.json] [--bf16]
 
 Builds the same YCB-width estimator as ``chip_smoke.py`` (21 objects,
-N=1000 points, 192 px crops, K=2, seeded random weights, full float32) and
-reports, for one B=64 batch with its inputs already on the card:
+N=1000 points, 192 px crops, K=2, seeded random weights, full float32;
+``--bf16``: the same weights with bf16 compute, as ``chip_smoke.py``
+[4l] serves them, kernel 6's bf16 route in the decoder) and reports, for
+one B=64 batch with its inputs already on the card:
 
 * stage times by CUDA events: trunk, PSP pyramid, up1, up2, the sparse up3
   decode + final 1x1 + log-softmax, fusion + heads, the two refine
@@ -18,6 +20,7 @@ Prints one JSON object and writes it to ``out.json`` when given.
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -53,10 +56,24 @@ def _busy_ms(events) -> float:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("out", nargs="?", default=None)
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 compute (the serving weights cast where used)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     rng = np.random.default_rng(cs.SEED)
-    est, _ = cs.seeded_estimator(rng)
+    est, states = cs.seeded_estimator(rng)
+    if args.bf16:
+        from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+        from densefusion_tpu_torch.serve import PoseEstimator
+        bf16 = torch.bfloat16
+        est = PoseEstimator(
+            PoseNet(cs.NUM_OBJ, dtype=bf16), PoseRefineNet(cs.NUM_OBJ,
+                                                           dtype=bf16),
+            *states, num_points=cs.NUM_POINTS, crop_size=cs.CROP,
+            refine_iters=cs.REFINE_ITERS, seed=cs.SEED)
     posenet = est.pipeline.posenet
     frames = [cs.make_frame(rng) for _ in range(20)]
     b = collate(cs.batch_samples(est, frames, cs.BATCH))
@@ -117,6 +134,7 @@ def main() -> None:
                  key=lambda e: e.self_device_time_total, reverse=True)[:20]
     result = {
         "card": cs.card_line(), "batch": cs.BATCH,
+        "dtype": "bfloat16" if args.bf16 else "float32",
         "refine_iters": cs.REFINE_ITERS, "stage_ms": ms,
         "profiled_calls": calls, "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall_ms,
@@ -127,9 +145,9 @@ def main() -> None:
     }
     text = json.dumps(result, indent=1)
     print(text)
-    if len(sys.argv) > 1:
-        Path(sys.argv[1]).parent.mkdir(parents=True, exist_ok=True)
-        Path(sys.argv[1]).write_text(text)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(text)
 
 
 if __name__ == "__main__":

@@ -180,17 +180,26 @@ def test_phase_conv_kernel_matches_plain():
     (8, 48, 48, 256, 256),    # up2's shape at B=8 (TMA weights)
     (2, 12, 10, 130, 5),      # ragged: Cout 5 takes the plain-load weights
     (1, 5, 7, 3, 9),          # tiny odd map, Cin below one wgmma depth
+    (2, 12, 10, 96, 64),      # Cin 96: not a multiple of 64 (3 chunks of 32)
+    (1, 3, 4, 96, 64),        # a map smaller than one tile
+    (3, 7, 9, 40, 136),       # flat length no multiple of the tile, odd w,
+                              # a part-filled chunk, a second channel tile
+    (1, 24, 24, 1024, 1024),  # B=1 at up1's shape (bench_latency)
+    (2, 96, 96, 64, 256),     # up3's shape at B=2
 ])
 def test_phase_conv_bf16_kernel_matches_plain(b, h, w, cin, cout):
     """Kernel 6's bf16 route against its plain version (float32 sums of the
-    bf16 products, one rounding): every element within one bf16 ulp
-    (``chip_smoke.bf16_ulps``), bf16 out, one launch counted."""
+    bf16 products, one rounding) on a channels-last map: every element
+    within one bf16 ulp (``chip_smoke.bf16_ulps``), bf16 out, one launch
+    counted. Cin % 8 != 0 takes the plain-load input path, Cout % 8 != 0
+    the plain-load weights."""
     dev = _cuda()
     import chip_smoke
 
     gen = torch.Generator(dev).manual_seed(7)
     xp = torch.randn((b, cin, h + 2, w + 2), device=dev,
-                     generator=gen).to(torch.bfloat16)
+                     generator=gen).to(torch.bfloat16).contiguous(
+                         memory_format=torch.channels_last)
     pk = (torch.randn((3, 3, cin, cout), device=dev, generator=gen)
           / np.sqrt(9 * cin)).to(torch.bfloat16)
     before = phase_conv.phase_conv_bf16_kernel.launches
@@ -200,6 +209,42 @@ def test_phase_conv_bf16_kernel_matches_plain(b, h, w, cin, cout):
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert chip_smoke.bf16_ulps(got, want) <= 1.0
     assert phase_conv.phase_conv_bf16_kernel.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_phase_conv_bf16_kernel_misaligned_base():
+    """A channels-last map whose base is 2 bytes off 16 (a view one element
+    into its storage) takes the plain-load input path: within one ulp."""
+    dev = _cuda()
+    import chip_smoke
+
+    gen = torch.Generator(dev).manual_seed(8)
+    buf = torch.randn((2 * 10 * 12 * 16 + 1,), device=dev,
+                      generator=gen).to(torch.bfloat16)
+    xp = buf[1:].view(2, 10, 12, 16).permute(0, 3, 1, 2)
+    pk = (torch.randn((3, 3, 16, 32), device=dev, generator=gen)
+          / 12).to(torch.bfloat16)
+    got = phase_conv.phase_conv_bf16_kernel(xp, pk)
+    want = phase_conv.conv3x3_valid_plain_nchw(xp, pk)
+    torch.cuda.synchronize()
+    assert xp.data_ptr() % 16 == 2
+    assert chip_smoke.bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_phase_conv_bf16_kernel_refuses_nchw_map():
+    """The bf16 kernel takes a channels-last map only: an NCHW-contiguous
+    bf16 map on the card raises, in the wrapper and through the kernel
+    route, and nothing launches or converts it silently."""
+    dev = _cuda()
+    xp = torch.zeros((2, 16, 10, 12), device=dev, dtype=torch.bfloat16)
+    pk = torch.zeros((3, 3, 16, 32), device=dev, dtype=torch.bfloat16)
+    before = phase_conv.phase_conv_bf16_kernel.launches
+    with pytest.raises(ValueError, match="channels-last"):
+        phase_conv.phase_conv_bf16_kernel(xp, pk)
+    with pytest.raises(ValueError, match="channels-last"):
+        phase_conv.conv3x3_valid_nchw(xp, pk, "kernel")
+    assert phase_conv.phase_conv_bf16_kernel.launches == before
 
 
 @pytest.mark.cuda

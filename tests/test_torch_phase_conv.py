@@ -331,3 +331,74 @@ def test_kernel_wrapper_refuses_non_contiguous():
     xp = torch.zeros((1, 6, 6, 3)).permute(0, 3, 1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         phase_conv.phase_conv_kernel(xp, torch.zeros((3, 3, 3, 4)))
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's channels-last map
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_plain_bf16_same_on_channels_last_map(shape):
+    """The plain version gives bit-identical bf16 results on a channels-last
+    and on a contiguous NCHW map of the same values: the bf16 kernel's
+    layout changes no number that the card's checks hold it to."""
+    xp, pk = _inputs(shape)
+    x = torch.from_numpy(np.ascontiguousarray(xp.transpose(0, 3, 1, 2))) \
+        .to(torch.bfloat16)
+    k = torch.from_numpy(pk).to(torch.bfloat16)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    assert x_cl.is_contiguous(memory_format=torch.channels_last) \
+        and not x_cl.is_contiguous()
+    want = phase_conv.conv3x3_valid_plain_nchw(x, k)
+    got = phase_conv.conv3x3_valid_plain_nchw(x_cl, k)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,backend,channels_last", [
+    (torch.bfloat16, "kernel", True),     # the bf16 kernel's layout
+    (torch.bfloat16, "library", False),   # F.pad's map, as before
+    (torch.float32, "kernel", False),     # the float32 decoder's map,
+    (torch.float32, "library", False),    # unchanged
+], ids=["bf16-kernel", "bf16-library", "f32-kernel", "f32-library"])
+def test_phase_conv_phases_hands_the_route_its_layout(
+        monkeypatch, dtype, backend, channels_last):
+    """``phase_conv_phases`` pads in the layout its route takes: the bf16
+    kernel route gets a channels-last map (written so in the pad's one
+    copy), every other route F.pad's contiguous map; the values are F.pad's
+    replicate border in every case, and so is the layer's output."""
+    _, (x, k, bias) = _layer_inputs(5, 7)
+    x, k, bias = x.to(dtype), k.to(dtype), bias.to(dtype)
+    seen = []
+
+    def spy(xp, pk, conv_backend="auto"):
+        seen.append(xp)
+        return phase_conv.conv3x3_valid_nchw(xp, pk, conv_backend)
+
+    want = layers.phase_conv_phases(x, k, bias, conv_backend=backend)
+    monkeypatch.setattr(layers, "conv3x3_valid_nchw", spy)
+    got = layers.phase_conv_phases(x, k, bias, conv_backend=backend)
+    (xp,) = seen
+    ref = torch.nn.functional.pad(x, (1, 1, 1, 1), mode="replicate")
+    assert torch.equal(xp, ref) and torch.equal(got, want)
+    assert xp.is_contiguous(memory_format=torch.channels_last) \
+        == channels_last
+    assert xp.is_contiguous() != channels_last
+    assert torch.equal(phase_conv.replicate_pad(x, backend), ref)
+
+
+def test_bf16_kernel_wrapper_refuses_nchw_map():
+    """The bf16 kernel's wrapper checks the map's layout before anything
+    else: an NCHW-contiguous bf16 map raises for its layout, a
+    channels-last one passes that check and is refused only for lying on
+    the CPU; nothing launches."""
+    kernel = phase_conv.phase_conv_bf16_kernel
+    before = kernel.launches
+    xp = torch.zeros((2, 16, 10, 12), dtype=torch.bfloat16)
+    pk = torch.zeros((3, 3, 16, 32), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="channels-last"):
+        kernel(xp, pk)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(xp.contiguous(memory_format=torch.channels_last), pk)
+    assert kernel.launches == before
+    assert kernel.layout == torch.channels_last
+    assert phase_conv.phase_conv_kernel.layout == torch.contiguous_format
