@@ -144,6 +144,22 @@ fails. Phases, in order:
    and step ms of both); ``cli.train --bf16 --remat_cnn`` for one epoch
    on the 4f root; ``bench_latency`` (bf16 on the card); a resnet50
    PoseNet forward at B=8 (kernel 6 three launches);
+   4m. data parallelism over every card, one spawned process per card on
+   NCCL (``dp_path``): the data-parallel phase-1 (B=32, M=500) and phase-2
+   (B=32, M=2600, K=2) steps on ``make_mesh()`` against the one-device
+   steps on the whole batch (half the rows invalid, on the last rank's
+   slice on several cards), two steps a phase from one seeded state, each
+   from the same state as its one-device step (which is also repeated,
+   the card's own spread): the gradients within 1e-5 of each tensor's
+   largest element on every card count; on one card the loss, ``dis`` and
+   parameters within 1e-6, on several the JAX DP test's gate (loss rtol
+   1e-5, parameters atol 1e-3); kernels 1, 2 and 6 launched per step as
+   on one device; step ms in turns; ``PoseEstimator(mesh=)`` on 63
+   samples at K=2 against the meshless estimator, kernel 6 three
+   launches, frames/s in turns; ``torchrun --nproc_per_node=<cards> -m densefusion_tpu_torch.
+   cli.train --data_parallel`` one epoch on the 4f root (one
+   ``checkpoint_current``, every rank's digest equal, resumed in one
+   process and served); ``cli.benchmark --what scaling``;
 5. the same B=8 batch on the card and on the CPU, with TF32 off, must agree,
    under each of the three decoders;
    5b. one phase-1 and one phase-2 loss and gradient at B=4, dropout off,
@@ -165,9 +181,10 @@ fails. Phases, in order:
    beside the device-only rate and the input-bound fraction
    (``cli/benchmark.py`` ``bench_loader`` / ``bench_train_e2e``); kernel 6
    and ``F.conv2d`` also at the training batch (B=32), the training CLI's
-   (B=16) and eval_ycb's largest frame bucket (B=8); the train-step
-   benchmarks ``cli/benchmark.py --what train`` and ``--what refine`` at
-   their defaults (B=8);
+   (B=16), eval_ycb's largest frame bucket (B=8), one crop (B=1) and the
+   three shapes the native-crop evaluation of [4i] launched most; the
+   train-step benchmarks ``cli/benchmark.py --what train`` and ``--what
+   refine`` at their defaults (B=8);
 7. a JSON line listing every ported kernel (``kernels``), with its launch
    count on the path that ported it (``launches``) and on each path
    (``launches_by_path``);
@@ -219,6 +236,9 @@ CAD_DIMS, CAD_TRAIN, CAD_TEST, CAD_BATCH = (520, 1109), 16, 30, 8
 # the JAX benchmark's; the FAT scene's frames
 SEG_CLASSES, SEG_CARD_SHAPE, SEG_BATCH, SEG_EPOCHS = 22, (2, 96, 128), 8, 3
 SEG_BENCH, FAT_FRAMES = (4, 480, 640, 22), 2
+# [4m] data parallelism: steps per phase, serving samples (63: padded on
+# every rank count but 1, 3, 7, 9, 21 and 63), the ranks' time limit
+DP_STEPS, DP_SAMPLES, DP_JOIN_S = 2, 63, 600
 # the KNN benchmark's shape (densefusion_tpu_torch/cli/benchmark.py)
 KNN_QUERIES, KNN_REFS = 250_000, 500
 SEED = 0
@@ -1602,6 +1622,27 @@ def linemod_eval_path(kernels: dict, root: str, out: str) -> dict:
 
 
 @contextlib.contextmanager
+def recorded_shapes(kernel):
+    """Count ``kernel``'s launches by shape while active (kernel 6's
+    entry point takes B, Cin, Cout, h, w after its three pointers): yields
+    a ``collections.Counter`` of those tuples."""
+    import collections
+
+    shapes = collections.Counter()
+    original = kernel.launch
+
+    def launch(dev, *args):
+        shapes[tuple(args[3:8])] += 1
+        return original(dev, *args)
+
+    kernel.launch = launch
+    try:
+        yield shapes
+    finally:
+        del kernel.launch
+
+
+@contextlib.contextmanager
 def counted_forwards():
     """Count PoseNet forwards (calls of ``PoseNet.forward``) while active:
     yields ``{"n": count}``."""
@@ -1632,7 +1673,7 @@ def _mat_poses(out: str, method: str, frame: int) -> np.ndarray:
 
 
 def ycb_eval_path(kernels: dict, ck: str, root: str, out: str,
-                  card: str) -> dict:
+                  card: str, phase_conv) -> dict:
     """Phase 4i: YCB keyframe evaluation of 4g's ``checkpoint_best_refine``
     at the YCB width (21 classes, N=1000, 192 px) on a root of its own
     (``YCB_KEYFRAMES`` keyframes of ``YCB_OBJS`` objects, fake PoseCNN
@@ -1649,7 +1690,8 @@ def ycb_eval_path(kernels: dict, ck: str, root: str, out: str,
     routes' poses agree within 1e-4; ``cli.score_ycb`` on the frame route's
     results gives ``metrics.json``'s table exactly. Then ``cli.visualize``
     on ``VIS_FRAMES`` frames of the root, and the benchmark's ``inference``
-    (B=16) and ``latency`` (B=1, K=2)."""
+    (B=16) and ``latency`` (B=1, K=2). Kernel 6's launches in the
+    native-crop route are counted by shape (``native_conv_shapes``)."""
     from densefusion_tpu_torch.cli import eval_ycb, score_ycb, visualize
     from densefusion_tpu_torch.cli.benchmark import (
         bench_inference, bench_latency,
@@ -1684,13 +1726,16 @@ def ycb_eval_path(kernels: dict, ck: str, root: str, out: str,
         for k in kernels.values():
             k.launches = 0
         stages = {}
-        with counted_forwards() as fw:
+        with counted_forwards() as fw, \
+                recorded_shapes(phase_conv.phase_conv_kernel) as shapes:
             t0 = time.perf_counter()
             summary = eval_ycb.main([*args, "--checkpoint", ck_route,
                                      "--output_dir", out_dir, *extra],
                                     timings=stages)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
+        if name == "native":
+            native_shapes = shapes.most_common()
         launches = {n: k.launches for n, k in kernels.items()}
         with open(os.path.join(out_dir, "metrics.json")) as f:
             metrics_text = f.read()
@@ -1812,7 +1857,10 @@ def ycb_eval_path(kernels: dict, ck: str, root: str, out: str,
         f"{bench_launches} (inference only); card {card}")
     for r in results.values():
         r.pop("metrics_text")
+    log(f"[4i] kernel 6 in the native-crop route, launches by (B, Cin, "
+        f"Cout, h, w): {native_shapes}")
     return {"generate_s": gen_s, "routes": results,
+            "native_conv_shapes": native_shapes,
             "frame_vs_detection_max_diff": worst, "score_ycb_s": score_s,
             "visualize": {"frames": len(written), "seconds": vis_s,
                           "launches": vis_launches},
@@ -2658,6 +2706,389 @@ def segnet_forward_flops(net, h: int, w: int) -> float:
     return total + net.conv11d.weight.numel() * 2 * h * w
 
 
+def dp_batch(rng, b: int, m: int, world: int):
+    """A numpy training batch as :func:`train_batch` makes it, with rows
+    0, 4, 8, ... symmetric (on every rank's slice) and the last
+    min(b / 2, b / world) rows invalid: half the rows on one rank, all on
+    the last rank's slice on several."""
+    from densefusion_tpu_torch.data import PoseSample
+
+    return PoseSample(
+        points=(rng.standard_normal((b, NUM_POINTS, 3)) * 0.05)
+        .astype(np.float32),
+        choose=rng.integers(0, CROP * CROP, (b, NUM_POINTS)).astype(np.int32),
+        img=rng.standard_normal((b, CROP, CROP, 3)).astype(np.float32),
+        target=(rng.standard_normal((b, m, 3)) * 0.05).astype(np.float32),
+        model_points=(rng.standard_normal((b, m, 3)) * 0.05)
+        .astype(np.float32),
+        obj_idx=rng.integers(0, NUM_OBJ, (b,)).astype(np.int32),
+        sym=np.arange(b) % 4 == 0,
+        valid=np.arange(b) < b - min(b // 2, b // world))
+
+
+def _params(state) -> dict:
+    """Both networks' tensors, by ``posenet.`` / ``refiner.`` names."""
+    return {f"{name}.{k}": v for name in ("posenet", "refiner")
+            for k, v in getattr(state, name).state_dict().items()}
+
+
+def _rel_errs(got: dict, want: dict, absolute: bool = False
+              ) -> tuple[float, int]:
+    """The largest max|got - want| / max|want| over the tensors (or the
+    largest max|got - want|), and the number of elements that differ at
+    all."""
+    worst, n = 0.0, 0
+    for k, w in want.items():
+        d = (got[k] - w).abs()
+        scale = 1.0 if absolute else max(float(w.abs().max()), 1e-30)
+        worst = max(worst, float(d.max()) / scale)
+        n += int((d > 0).sum())
+    return worst, n
+
+
+def _same_state_steps(state, batches, shard, kernels, dev) -> dict:
+    """Each phase's ``DP_STEPS`` steps, each taken three times from the
+    same state (parameters, Adam's moments, the dropout generator set back
+    before each): the one-device step on the whole batch, the same step
+    again (the card's own run-to-run spread), and the data-parallel step
+    on this rank's rows; the run goes on from the data-parallel step.
+    -> ``rows``: per step, for the data-parallel step and for the repeat
+    against the first one-device step, the relative differences of the
+    loss and ``dis``, the largest of the trained module's gradients and of
+    the parameters (each over its tensor's largest element), the largest
+    absolute parameter difference, the elements that differ at all, and
+    whether the generators agree; ``one_device`` / ``dp``: per step the
+    loss, ``dis`` and the launches of ``kernels`` (reset before each step);
+    ``steps`` / ``data``: per phase the one-device and data-parallel step
+    functions and their batches."""
+    import copy
+
+    from densefusion_tpu_torch.data import to_device
+    from densefusion_tpu_torch.train import (
+        make_pose_train_step, make_refine_train_step,
+    )
+
+    out = {"rows": [], "one_device": [], "dp": [], "steps": [], "data": []}
+    for phase, batch in ((1, batches[0]), (2, batches[1])):
+        module = state.posenet if phase == 1 else state.refiner
+        made = []
+        for sharding in (None, None, shard.sharding):
+            made.append((make_pose_train_step(state, True, 1, sharding)
+                         if phase == 1 else make_refine_train_step(
+                             state, REFINE_ITERS, 1, sharding),
+                         state.optimizer))
+        whole = to_device(batch, dev)
+        data = (whole, whole, to_device(shard(batch), dev))
+        for _ in range(DP_STEPS):
+            params = {k: v.clone() for k, v in _params(state).items()}
+            opt = copy.deepcopy(made[-1][1].state_dict())
+            gen = state.generator.get_state()
+            rec = []
+            for (step, optimizer), batch_data in zip(made, data):
+                for name in ("posenet", "refiner"):
+                    mod = getattr(state, name)
+                    mod.load_state_dict({k: params[f"{name}.{k}"]
+                                         for k in mod.state_dict()})
+                optimizer.load_state_dict(copy.deepcopy(opt))
+                state.generator.set_state(gen)
+                for k in kernels.values():
+                    k.launches = 0
+                m = step(batch_data, W)
+                torch.cuda.synchronize()
+                rec.append((float(m["loss"]), float(m["dis"]),
+                            {k: p.grad.clone()
+                             for k, p in module.named_parameters()},
+                            {k: v.clone() for k, v in _params(state).items()},
+                            state.generator.get_state(),
+                            {n: k.launches for n, k in kernels.items()}))
+            for name, r in (("one_device", rec[0]), ("dp", rec[2])):
+                out[name].append({"phase": phase, "loss": r[0], "dis": r[1],
+                                  "launches": r[5]})
+            row = {"phase": phase}
+            for name, other in (("dp", rec[2]), ("repeat", rec[1])):
+                grad_err, grad_n = _rel_errs(other[2], rec[0][2])
+                param_err, param_n = _rel_errs(other[3], rec[0][3])
+                row[name] = {
+                    "loss": abs(other[0] - rec[0][0]) / max(abs(rec[0][0]),
+                                                            1e-30),
+                    "dis": abs(other[1] - rec[0][1]) / max(abs(rec[0][1]),
+                                                           1e-30),
+                    "grad": grad_err, "grad_elements": grad_n,
+                    "param": param_err, "param_elements": param_n,
+                    "param_abs": _rel_errs(other[3], rec[0][3],
+                                           absolute=True)[0],
+                    "generator_equal": bool(torch.equal(other[4],
+                                                        rec[0][4]))}
+            out["rows"].append(row)
+        out["steps"].append((made[0][0], made[2][0]))
+        out["data"].append((data[0], data[2]))
+    return out
+
+
+def _dp_rank(rank: int, world: int, init: str) -> dict:
+    """[4m] on one rank (one card): the data-parallel steps against the
+    one-device steps, then mesh serving against the meshless estimator."""
+    import hashlib
+
+    from densefusion_tpu_torch import parallel
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.ops import add_dist, phase_conv
+    from densefusion_tpu_torch.serve import PoseEstimator
+    from densefusion_tpu_torch.train import create_train_state
+
+    parallel.initialize_distributed(init, world, rank)
+    mesh = parallel.make_mesh()
+    shard = parallel.make_shard_batch_fn(mesh)
+    backend = torch.distributed.get_backend()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kernels = {"add_dist_paired": add_dist.paired_kernel,
+               "add_dist_min": add_dist.min_kernel,
+               "phase_conv": phase_conv.phase_conv_kernel}
+    rng = np.random.default_rng(SEED + 20)
+    batches = (dp_batch(rng, TRAIN_BATCH, NUM_MESH, world),
+               dp_batch(rng, TRAIN_BATCH, REFINE_MESH, world))
+
+    state = create_train_state(PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ),
+                               LR, SEED, dev)
+    run = _same_state_steps(state, batches, shard, kernels, dev)
+    digest = hashlib.sha256()
+    for v in _params(state).values():
+        digest.update(v.detach().cpu().contiguous().numpy().tobytes())
+    # the steps' host-clock ms, in turns: one device, dp, dp, one device
+    step_turns = {}
+    for phase, steps, data in zip((1, 2), run.pop("steps"), run.pop("data")):
+        readings = [step_ms(steps[j], data[j]) for j in (0, 1, 1, 0)]
+        step_turns[phase] = {"one_device_ms": readings[::3],
+                             "dp_ms": readings[1:3]}
+    del state
+
+    # serving: the mesh estimator against the meshless one, same weights
+    est_rng = np.random.default_rng(SEED + 21)
+    single, states = seeded_estimator(est_rng)
+    on_mesh = PoseEstimator(PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ), *states,
+                            num_points=NUM_POINTS, crop_size=CROP,
+                            refine_iters=REFINE_ITERS, seed=SEED, mesh=mesh)
+    frames = [make_frame(est_rng) for _ in range(16)]
+    samples = batch_samples(single, frames, DP_SAMPLES)
+    want = single.estimate_batch(samples)
+    kernels["phase_conv"].launches = 0
+    with counted_forwards() as fw:
+        got_poses = on_mesh.estimate_batch(samples)
+        torch.cuda.synchronize()
+    serve_launches = kernels["phase_conv"].launches
+    serve_err = {k: float(np.abs(g - w).max()) for k, g, w in
+                 zip(("quat", "trans", "conf"), got_poses, want)}
+    serve_ok = (got_poses[0].shape == (DP_SAMPLES, 4)
+                and np.array_equal(got_poses[3], want[3])
+                and all(np.allclose(g, w, rtol=1e-4, atol=1e-5)
+                        for g, w in zip(got_poses[:3], want[:3])))
+    serve_turns = {"meshless_ms": [], "mesh_ms": []}
+    for name, est in (("meshless", single), ("mesh", on_mesh),
+                      ("mesh", on_mesh), ("meshless", single)):
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            est.estimate_batch(samples)
+            walls.append(time.perf_counter() - t0)
+        serve_turns[f"{name}_ms"].append(1e3 * float(np.median(walls)))
+    return {"backend": backend, "card": dev.index, "one_device":
+            run["one_device"], "dp": run["dp"], "same_state": run["rows"],
+            "digest": digest.hexdigest(),
+            "step_turns": step_turns, "serve_ok": serve_ok,
+            "serve_err": serve_err, "serve_forwards": fw["n"],
+            "serve_launches": serve_launches, "serve_turns": serve_turns}
+
+
+def dp_rank(rank: int, world: int, init: str, queue) -> None:
+    """A spawned rank of [4m]: puts ``(rank, result, traceback)``."""
+    import torch.distributed as dist
+
+    try:
+        queue.put((rank, _dp_rank(rank, world, init), None))
+    except BaseException:   # reported to the parent, which fails the run
+        queue.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_path(root: str, out: str, card: str) -> dict:
+    """Phase 4m: data parallelism over every card, one process each.
+
+    1. ``dp_rank`` on each card over NCCL: the data-parallel phase-1 (B=32,
+       M=500) and phase-2 (B=32, M=2600, K=2) steps on ``make_mesh()``,
+       ``DP_STEPS`` each, against the one-device steps on the whole batch
+       (rows 0, 4, ... symmetric, the last rows invalid), each step from
+       the same state, the run going on from the data-parallel step
+       (``_same_state_steps``): the gradients within 1e-5 of each tensor's
+       largest element on every rank count (the one-device step repeated,
+       the card's own spread, printed beside); on one rank the loss,
+       ``dis`` and every parameter within 1e-6, on several the loss and
+       ``dis`` rtol 1e-5 and the parameters atol 1e-3 (the JAX DP test's).
+       Each step's launches of kernels 1, 2 and 6 equal to the one-device
+       step's; the step times in turns;
+       ``PoseEstimator(mesh=)`` on ``DP_SAMPLES`` samples at K=2 against
+       the meshless estimator (rtol 1e-4, atol 1e-5, valid flags equal),
+       kernel 6 three launches a forward, frames/s in turns.
+    2. ``torchrun --nproc_per_node=<cards> -m densefusion_tpu_torch.cli.
+       train --data_parallel`` for one epoch on the 4f root (B=16): exit 0,
+       the epoch's metrics, one ``checkpoint_current``, every rank's
+       parameter digest equal, and the checkpoint resumed in a one-process
+       ``Trainer`` (the same digest) and served by ``from_checkpoint``.
+    3. ``cli.benchmark --what scaling``: a row per rank count up to the
+       cards."""
+    from densefusion_tpu_torch.cli import benchmark
+    from densefusion_tpu_torch.parallel import spawn_ranks
+    from densefusion_tpu_torch.serve import PoseEstimator
+    from densefusion_tpu_torch.train import Trainer
+    from densefusion_tpu_torch.utils.config import RunConfig
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_rank, world,
+                        (f"file://{os.path.join(out, 'store')}",), DP_JOIN_S)
+    ranks_s = time.perf_counter() - t0
+    for rank, r in sorted(ranks.items()):
+        if r["backend"] != "nccl" or r["card"] != rank:
+            raise AssertionError(f"[4m] rank {rank} ran {r['backend']} on "
+                                 f"card {r['card']}")
+        for i, (a, b) in enumerate(zip(r["one_device"], r["dp"])):
+            if a["launches"] != b["launches"] \
+                    or min(b["launches"].values()) < 1:
+                raise AssertionError(f"[4m] rank {rank} step {i}: launches "
+                                     f"{b['launches']}, one device "
+                                     f"{a['launches']}")
+        # each step from the same state. On every rank count the gradients
+        # within 1e-5 of each tensor's largest element: the gate that sees
+        # a wrong reduction (a mean where a sum belongs, a rank's own
+        # count), which Adam's near scale-invariance hides from the
+        # parameters. The card's float32 backward is not bit-reproducible:
+        # the one-device step repeated reads up to ~2e-6, printed beside.
+        # On one rank the arithmetic is the one-device step's: loss, dis
+        # and parameters within 1e-6. On several, the JAX DP test's gate:
+        # loss and dis rtol 1e-5, parameters atol 1e-3.
+        for i, row in enumerate(r["same_state"]):
+            dp = row["dp"]
+            if max(dp["loss"], dp["dis"]) > (1e-6 if world == 1 else 1e-5) \
+                    or dp["grad"] > 1e-5 \
+                    or (dp["param"] > 1e-6 if world == 1
+                        else dp["param_abs"] > 1e-3) \
+                    or not dp["generator_equal"]:
+                raise AssertionError(f"[4m] rank {rank} step {i} from the "
+                                     f"same state: {row}")
+        if not r["serve_ok"] or r["serve_forwards"] != 1 \
+                or r["serve_launches"] != 3 * r["serve_forwards"]:
+            raise AssertionError(f"[4m] rank {rank} mesh serving: errors "
+                                 f"{r['serve_err']}, {r['serve_forwards']} "
+                                 f"forwards, {r['serve_launches']} launches")
+    if len({r["digest"] for r in ranks.values()}) != 1:
+        raise AssertionError("[4m] the ranks' parameters differ")
+    r0 = ranks[0]
+    turns = r0["step_turns"]
+    for i, row in enumerate(r0["same_state"]):
+        log(f"[4m] phase-{row['phase']} step {i % DP_STEPS} from the same "
+            f"state, data-parallel vs one device: {row['dp']}; the "
+            f"one-device step repeated: {row['repeat']}")
+    log(f"[4m] {world} rank(s) on NCCL ({ranks_s:.1f} s with start-up): "
+        f"data-parallel steps vs one device, B={TRAIN_BATCH} ("
+        f"{TRAIN_BATCH - min(TRAIN_BATCH // 2, TRAIN_BATCH // world)} rows "
+        f"valid): losses {[x['loss'] for x in r0['dp']]} vs "
+        f"{[x['loss'] for x in r0['one_device']]}; "
+        f"launches per step {r0['dp'][0]['launches']} "
+        f"(phase 1), {r0['dp'][-1]['launches']} (phase 2), as one device; "
+        f"step ms in turns (one device, dp, dp, one device): phase 1 "
+        f"{turns[1]}, phase 2 {turns[2]}; card {card}")
+    st = r0["serve_turns"]
+    log(f"[4m] PoseEstimator(mesh=) on {DP_SAMPLES} samples, K="
+        f"{REFINE_ITERS}: max diff to meshless {r0['serve_err']}; kernel 6 "
+        f"{r0['serve_launches']} launches in {r0['serve_forwards']} forward; "
+        f"estimate_batch ms in turns: meshless {st['meshless_ms']}, mesh "
+        f"{st['mesh_ms']} = {DP_SAMPLES * 1e3 / np.mean(st['mesh_ms']):.1f} "
+        f"vs {DP_SAMPLES * 1e3 / np.mean(st['meshless_ms']):.1f} frames/s; "
+        f"card {card}")
+
+    # 2. the training CLI under torchrun (python -m torch.distributed.run)
+    cli_out, logs = os.path.join(out, "cli"), os.path.join(out, "logs")
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           f"--nproc_per_node={world}", "--nnodes=1", "--node_rank=0",
+           "--master_addr=127.0.0.1", f"--master_port={_free_port()}",
+           "-m", "densefusion_tpu_torch.cli.train", "--data_parallel",
+           "--dataset", "ycb", "--dataset_root", root, "--batch_size",
+           str(CLI_BATCH), "--workers", str(DATA_WORKERS), "--nepoch", "1",
+           "--out_dir", cli_out, "--log_dir", logs]
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=DP_JOIN_S)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[4m] torchrun cli.train --data_parallel "
+                             f"exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    digests = sorted(ln.split()[-1] for ln in proc.stdout.splitlines()
+                     if "parameters sha256" in ln)
+    with open(os.path.join(logs, "ycb", "metrics.jsonl")) as f:
+        records = [json.loads(ln) for ln in f]
+    currents = sorted(str(p) for p in Path(cli_out).rglob(
+        "checkpoint_current"))
+    if len(digests) != world or len(set(digests)) != 1 \
+            or [r["kind"] for r in records] != ["train_epoch", "test_epoch"] \
+            or len(currents) != 1:
+        raise AssertionError(f"[4m] torchrun run: digests {digests}, "
+                             f"metrics {records}, checkpoints {currents}")
+    cfg = RunConfig.preset("ycb", dataset_root=root, batch_size=CLI_BATCH,
+                           num_workers=DATA_WORKERS,
+                           out_dir=os.path.join(out, "resume"),
+                           log_dir=os.path.join(out, "resume_logs"))
+    resumed = Trainer(cfg)
+    try:
+        resumed.setup(resume=currents[0])
+    finally:
+        resumed.close()
+    est = PoseEstimator.from_checkpoint(currents[0], num_obj=NUM_OBJ,
+                                        num_points=NUM_POINTS)
+    frames = [make_frame(np.random.default_rng(SEED + 22)) for _ in range(2)]
+    poses = est.estimate_batch(batch_samples(est, frames, 4))
+    if resumed.param_digest() != digests[0] \
+            or resumed.curriculum.epoch != 2 \
+            or not all(np.isfinite(x).all() for x in poses[:3]):
+        raise AssertionError("[4m] the torchrun checkpoint does not resume "
+                             "or serve")
+    log(f"[4m] torchrun --nproc_per_node={world} cli.train --data_parallel: "
+        f"one epoch (B={CLI_BATCH}) in {cli_s:.1f} s with start-up, exit 0, "
+        f"metrics {[(r['kind'], round(r['avg_dis'], 6)) for r in records]}, "
+        f"one checkpoint_current, {world} rank digest(s) equal, resumed in "
+        f"one process (same digest) and served by from_checkpoint")
+
+    # 3. the scaling benchmark
+    t0 = time.perf_counter()
+    scaling = benchmark.main(["--what", "scaling"])
+    scaling_s = time.perf_counter() - t0
+    rows = {k: v for k, v in scaling.items() if k.startswith("scaling_")}
+    if set(rows) != {f"scaling_{n}dev_{k}" for n in (1, 2, 4, 8, 16, 32)
+                     if n <= world for k in ("fps", "efficiency")} \
+            or not all(np.isfinite(v) and v > 0 for v in rows.values()):
+        raise AssertionError(f"[4m] bench_scaling: {scaling}")
+    log(f"[4m] cli.benchmark --what scaling saw {world} card(s): {rows} "
+        f"({scaling_s:.1f} s)" + ("; one card: no scaling claimed, the "
+                                  "efficiency of 1 is the definition"
+                                  if world == 1 else "") + f"; card {card}")
+    return {"world": world, "ranks": ranks, "ranks_s": ranks_s,
+            "cli_s": cli_s, "cli_metrics": records, "scaling": scaling,
+            "launches": {"dp_training": {
+                n: sum(r["launches"][n] for r in r0["dp"])
+                for n in r0["dp"][0]["launches"]},
+                "mesh_serving": {"phase_conv": r0["serve_launches"]}}}
+
+
 @contextlib.contextmanager
 def float64_casts():
     """The port casts to float32 in a few places (heads, embedding, the
@@ -2864,17 +3295,22 @@ def cpu_agreement(est_gpu, est_cpu, samples) -> dict:
     return err
 
 
-def conv_timings(phase_conv, bsz: int, gen, card: str) -> dict:
-    """Kernel 6 at the decoder's three phase-conv shapes at batch ``bsz``,
-    beside its plain version and the library convolution on the same
-    padded input; the library and the kernel timed in turns (library,
-    kernel, kernel, library), each figure the mean of its two readings."""
+def conv_timings(phase_conv, bsz: int, gen, card: str,
+                 shapes=None) -> dict:
+    """Kernel 6 at the decoder's three phase-conv shapes at batch ``bsz``
+    (or at ``shapes``, ``{name: (B, Cin, Cout, h, w)}``), beside its plain
+    version and the library convolution on the same padded input; the
+    library and the kernel timed in turns (library, kernel, kernel,
+    library), each figure the mean of its two readings."""
     import torch.nn.functional as F
     from densefusion_tpu_torch.device import precision_policy
 
+    if shapes is None:
+        shapes = {name: (bsz, cin, cout, hw, hw)
+                  for name, hw, cin, cout in DECODER_CONVS}
     conv_times = {}
-    for name, hw, cin, cout in DECODER_CONVS:
-        xp = torch.randn((bsz, cin, hw + 2, hw + 2), device="cuda",
+    for name, (bsz, cin, cout, h, w) in shapes.items():
+        xp = torch.randn((bsz, cin, h + 2, w + 2), device="cuda",
                          generator=gen)
         pk = torch.randn((3, 3, cin, cout), device="cuda",
                          generator=gen) / np.sqrt(9 * cin)
@@ -2894,8 +3330,8 @@ def conv_timings(phase_conv, bsz: int, gen, card: str) -> dict:
         rel_plain = float((got - plain).abs().max() / plain.abs().max())
         lib = F.conv2d(xp, w_oihw)
         rel_lib = float((got - lib).abs().max() / lib.abs().max())
-        bnd, by = conv_bound_ms(bsz, hw, hw, cin, cout)
-        ffma, _ = conv_bound_ms(bsz, hw, hw, cin, cout, "ffma")
+        bnd, by = conv_bound_ms(bsz, h, w, cin, cout)
+        ffma, _ = conv_bound_ms(bsz, h, w, cin, cout, "ffma")
         conv_times[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                             "kernel_over_library": k_ms / l_ms,
                             "readings_ms": {"library": readings[::3],
@@ -2905,7 +3341,7 @@ def conv_timings(phase_conv, bsz: int, gen, card: str) -> dict:
                             "bound_ffma_ms": ffma,
                             "rel_err_vs_plain": rel_plain,
                             "rel_diff_vs_library": rel_lib}
-        log(f"[6] phase_conv {name} (B={bsz}, {hw}x{hw}, {cin} -> {cout}): "
+        log(f"[6] phase_conv {name} (B={bsz}, {h}x{w}, {cin} -> {cout}): "
             f"kernel {k_ms:.4f} ms (graph replays), F.conv2d {l_ms:.4f} ms "
             f"({precision_policy()}), kernel / library {k_ms / l_ms:.3f}; "
             f"plain {p_ms:.4f} ms; bound {bnd:.4f} ms (3xTF32, {by}), "
@@ -3130,7 +3566,7 @@ def run() -> None:
     ycb = ycb_eval_path(eval_kernels,
                         os.path.join(ck_out, "ycb", "checkpoint_best_refine"),
                         os.path.join(ycb_dir, "root"),
-                        os.path.join(ycb_dir, "out"), card)
+                        os.path.join(ycb_dir, "out"), card, phase_conv)
     path_launches["ycb_eval"] = {
         n: sum(r["launches"][n] for r in ycb["routes"].values())
         + ycb["visualize"]["launches"][n] for n in eval_kernels}
@@ -3180,6 +3616,15 @@ def run() -> None:
     bf16_cli = bf16_cli_path(phase_conv, data_root, bf16_dir, card)
     path_launches["bf16_cli_train"] = bf16_cli["cli_launches"]
     path_launches["resnet50"] = bf16_cli["resnet50_launches"]
+
+    # 4m. data parallelism: the DP steps on NCCL over every card against
+    # the one-device steps, mesh serving, cli.train --data_parallel under
+    # torchrun on the 4f root, the scaling benchmark (launch counts reset
+    # before each step and the serving call, read after)
+    dp_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    atexit.register(shutil.rmtree, dp_dir, True)
+    dp = dp_path(data_root, dp_dir, card)
+    path_launches.update(dp.pop("launches"))
 
     # 5. card vs CPU, TF32 off
     est_cpu = seeded_estimator(None, states, device="cpu")[0]
@@ -3447,6 +3892,13 @@ def run() -> None:
     # largest frame bucket, B=8
     conv_times_small = {bsz: conv_timings(phase_conv, bsz, gen, card)
                         for bsz in (CLI_BATCH, 8)}
+    # and at B=1 (one 192 px crop) and the three shapes the native-crop YCB
+    # evaluation ([4i]) launched most
+    conv_times_b1 = conv_timings(phase_conv, 1, gen, card)
+    conv_times_native = conv_timings(phase_conv, None, gen, card, shapes={
+        f"native (B={b}, {h}x{w}, {cin} -> {cout}), {n} launches in [4i]":
+        (b, cin, cout, h, w)
+        for (b, cin, cout, h, w), n in ycb["native_conv_shapes"][:3]})
     # the train-step benchmarks at their defaults (B=8, a quarter of the
     # rows symmetric; phase 2 at M=2600, K=2)
     from densefusion_tpu_torch.cli import benchmark
@@ -3544,6 +3996,8 @@ def run() -> None:
         "by_shape_b32": conv_times_b32,
         "by_shape_b16": conv_times_small[CLI_BATCH],
         "by_shape_b8": conv_times_small[8],
+        "by_shape_b1": conv_times_b1,
+        "by_shape_native_crops": conv_times_native,
         "parity": "ok", "build_s": build_s,
     })
     up1_bf16 = bf16_conv["by_shape"][
@@ -3587,7 +4041,7 @@ def run() -> None:
                "decoder_path_rel_errors": decoder["rel_errors"],
                "serving_cpu_agreement": agree,
                "bf16_serving": bf16_serve, "bf16_training": bf16_train,
-               "bf16_cli": bf16_cli,
+               "bf16_cli": bf16_cli, "data_parallel": dp,
                "train_cpu_agreement": train_agree, "card": card}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"kernels": kernels}))

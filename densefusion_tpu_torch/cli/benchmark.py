@@ -1,23 +1,28 @@
 """Benchmark CLI: the 1-NN search at the training ADD-S query count,
 batched and single-frame pose inference, the train steps of both phases,
-the host data plane, loader-fed training, and SegNet.
+data-parallel scaling, the host data plane, loader-fed training, and
+SegNet.
 
 Counterpart of ``densefusion_tpu/cli/benchmark.py`` (``bench_knn``,
 ``bench_inference``, ``bench_latency``, ``bench_train_step``,
-``bench_refine_step``, ``bench_loader``, ``bench_train_e2e`` and
-``bench_seg``: same shapes and keys). Runs on the card unless given
-``--device cpu``::
+``bench_refine_step``, ``bench_scaling``, ``bench_loader``,
+``bench_train_e2e`` and ``bench_seg``: same shapes and keys). Runs on the
+card unless given ``--device cpu``::
 
+    python -m densefusion_tpu_torch.cli.benchmark            # --what all
     python -m densefusion_tpu_torch.cli.benchmark --what knn
     python -m densefusion_tpu_torch.cli.benchmark --what inference
     python -m densefusion_tpu_torch.cli.benchmark --what latency
     python -m densefusion_tpu_torch.cli.benchmark --what train
     python -m densefusion_tpu_torch.cli.benchmark --what refine
+    python -m densefusion_tpu_torch.cli.benchmark --what scaling
     python -m densefusion_tpu_torch.cli.benchmark --what loader
     python -m densefusion_tpu_torch.cli.benchmark --what train_e2e
     python -m densefusion_tpu_torch.cli.benchmark --what seg
 
-Each prints one JSON object with the device it ran on.
+Each prints one JSON object with the device it ran on; ``all`` (the
+default, as in the JAX CLI) runs ``knn``, ``inference`` and ``train`` and
+prints their keys together.
 
 * ``knn``: ``knn_backend`` (``cuda``: the kernel of ``csrc/nn.cu``;
   ``plain``: its plain PyTorch version on the CPU), ``knn_us`` per search
@@ -37,6 +42,12 @@ Each prints one JSON object with the device it ran on.
   sync), frames/s; float32.
 * ``refine``: the phase-2 step (frozen PoseNet, K=2 refiner iterations
   against M=2600 model points) at the same batch: ms per step, frames/s.
+* ``scaling``: weak scaling of the data-parallel phase-1 step at 8 rows
+  per card (N=500, M=500, 192 px, 21 objects, all rows valid, none
+  symmetric, the JAX benchmark's batch) on 1, 2, 4, ... cards up to the
+  machine's: ``scaling_{n}dev_fps`` (rank 0's host clock, each step ended
+  by a sync) and ``scaling_{n}dev_efficiency`` = fps(n) / (n fps(1)). Each
+  n is a group of n spawned processes, one per card, over NCCL.
 * ``loader``: samples/s of the YCB training reader through ``BatchLoader``
   on a synthetic root (5 classes, 32 real + 32 synthetic 480x640 frames,
   N=1000, 192 px crops): cold (PNG decode), warm (decoded-frame cache,
@@ -56,8 +67,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -69,6 +82,8 @@ from densefusion_tpu_torch.ops.knn import nearest_neighbor
 NUM_QUERY, NUM_REF = 250_000, 500
 # the train-step benchmarks: YCB's object count and confidence weight
 NUM_OBJ, W = 21, 0.015
+# bench_scaling: seconds a group of ranks has to give its result
+SCALING_TIMEOUT_S = 600.0
 
 
 def bench_knn(repeats: int = 50, device: str | torch.device | None = None,
@@ -245,6 +260,90 @@ def bench_refine_step(batch: int = 8, repeats: int = 10,
     return {"refine_batch": batch, "refine_mesh_points": mesh_points,
             "refine_ms_per_step": dt * 1e3, "refine_frames_per_s": batch / dt,
             "dtype": "float32", "device": _device_name(dev)}
+
+
+def _scaling_rank(rank: int, n_dev: int, init: str, device: str,
+                  shape: dict, repeats: int, queue) -> None:
+    """One rank of :func:`bench_scaling`: joins the group of ``n_dev``
+    ranks at ``init``, steps the data-parallel phase-1 step on its rows of
+    the seeded global batch, and puts its seconds per step (each step
+    ended by a sync on the summed loss) on ``queue``; a failure puts its
+    traceback."""
+    import torch.distributed as dist
+
+    from densefusion_tpu_torch.data import PoseSample, to_device
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.parallel import (
+        initialize_distributed, make_mesh, make_shard_batch_fn,
+    )
+    from densefusion_tpu_torch.train import (
+        create_train_state, make_pose_train_step,
+    )
+    from densefusion_tpu_torch.utils.config import RunConfig
+
+    try:
+        initialize_distributed(init, n_dev, rank, device=device)
+        dev = resolve_device(device)
+        shard = make_shard_batch_fn(make_mesh(device=device))
+        b = shape["per_device_batch"] * n_dev
+        n, m, crop = shape["num_points"], shape["mesh_points"], shape["crop"]
+        num_obj = shape["num_obj"]
+        rng = np.random.default_rng(0)
+        batch = PoseSample(
+            points=rng.standard_normal((b, n, 3)).astype(np.float32) * 0.05,
+            choose=rng.integers(0, crop * crop, (b, n)).astype(np.int32),
+            img=rng.standard_normal((b, crop, crop, 3)).astype(np.float32),
+            target=rng.standard_normal((b, m, 3)).astype(np.float32) * 0.05,
+            model_points=rng.standard_normal((b, m, 3)).astype(np.float32)
+            * 0.05,
+            obj_idx=rng.integers(0, num_obj, (b,)).astype(np.int32),
+            sym=np.zeros((b,), bool), valid=np.ones((b,), bool))
+        state = create_train_state(PoseNet(num_obj), PoseRefineNet(num_obj),
+                                   RunConfig.preset("ycb").lr, 0, dev)
+        step = make_pose_train_step(state, use_adds=True,
+                                    sharding=shard.sharding)
+        queue.put((rank, _time_steps(step, to_device(shard(batch), dev),
+                                     repeats), None))
+    except Exception:   # reported to bench_scaling, which raises
+        queue.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def bench_scaling(per_device_batch: int = 8, repeats: int = 5,
+                  n_devices: int | None = None,
+                  device: str | torch.device | None = None,
+                  num_points: int = 500, mesh_points: int = 500,
+                  crop_size: int = 192, num_obj: int = NUM_OBJ) -> dict:
+    """Data-parallel scaling: frames/s of the phase-1 train step on 1, 2,
+    4, ... up to ``n_devices`` ranks (default: every card; 1 on the CPU) at
+    a fixed per-rank batch. Efficiency(n) = fps(n) / (n fps(1)), the >=80%
+    multi-device target of the JAX benchmark; fps(n) is rank 0's. Each n
+    runs in n spawned processes over a ``FileStore``: NCCL on the cards,
+    gloo with ``device="cpu"``. A rank that fails, or a group that gives
+    no result within ``SCALING_TIMEOUT_S``, raises."""
+    from densefusion_tpu_torch.parallel import spawn_ranks
+
+    dev = resolve_device(device)
+    if n_devices is None:
+        n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+    shape = {"per_device_batch": per_device_batch, "num_points": num_points,
+             "mesh_points": mesh_points, "crop": crop_size,
+             "num_obj": num_obj}
+    out = {}
+    base_fps = None
+    for n_dev in (n for n in (1, 2, 4, 8, 16, 32) if n <= n_devices):
+        with tempfile.TemporaryDirectory(prefix="bench_scaling_") as tmp:
+            dt = spawn_ranks(_scaling_rank, n_dev, (
+                f"file://{os.path.join(tmp, 'store')}", dev.type, shape,
+                repeats), SCALING_TIMEOUT_S)[0]
+        fps = per_device_batch * n_dev / dt
+        base_fps = base_fps or fps
+        out[f"scaling_{n_dev}dev_fps"] = fps
+        out[f"scaling_{n_dev}dev_efficiency"] = fps / (n_dev * base_fps)
+    out.update({"dtype": "float32", "device": _device_name(dev)})
+    return out
 
 
 def bench_seg(batch: int = 4, repeats: int = 10, num_classes: int = 22,
@@ -444,9 +543,10 @@ def bench_train_e2e(batch: int = 16, steps: int = 60, workers: int = 4,
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--what", default="knn",
-                   choices=["knn", "inference", "latency", "train",
-                            "refine", "loader", "train_e2e", "seg"])
+    p.add_argument("--what", default="all",
+                   choices=["all", "knn", "inference", "latency", "train",
+                            "refine", "seg", "scaling", "loader",
+                            "train_e2e"])
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     p.add_argument("--queries", type=int, default=NUM_QUERY,
@@ -473,24 +573,30 @@ def main(argv=None) -> dict:
                    dataset_root=args.dataset_root,
                    num_points=args.num_points, crop_size=args.crop_size,
                    device=args.device)
-    if args.what == "knn":
-        results = bench_knn(device=args.device, num_query=args.queries)
-    elif args.what == "inference":
-        results = bench_inference(batch=args.batch or 16, device=args.device)
-    elif args.what == "latency":
-        results = bench_latency(device=args.device)
-    elif args.what == "train":
-        results = bench_train_step(batch=args.batch or 8, device=args.device)
-    elif args.what == "refine":
-        results = bench_refine_step(batch=args.batch or 8,
-                                    device=args.device)
-    elif args.what == "loader":
-        results = bench_loader(**data_kw)
-    elif args.what == "seg":
-        results = bench_seg(batch=args.batch or 4, device=args.device)
-    else:
-        results = bench_train_e2e(steps=args.steps,
-                                  device_steps=args.device_steps, **data_kw)
+    results = {}
+    if args.what in ("all", "knn"):
+        results.update(bench_knn(device=args.device, num_query=args.queries))
+    if args.what in ("all", "inference"):
+        results.update(bench_inference(batch=args.batch or 16,
+                                       device=args.device))
+    if args.what == "latency":
+        results.update(bench_latency(device=args.device))
+    if args.what in ("all", "train"):
+        results.update(bench_train_step(batch=args.batch or 8,
+                                        device=args.device))
+    if args.what == "refine":
+        results.update(bench_refine_step(batch=args.batch or 8,
+                                         device=args.device))
+    if args.what == "seg":
+        results.update(bench_seg(batch=args.batch or 4, device=args.device))
+    if args.what == "scaling":
+        results.update(bench_scaling(device=args.device))
+    if args.what == "loader":
+        results.update(bench_loader(**data_kw))
+    if args.what == "train_e2e":
+        results.update(bench_train_e2e(steps=args.steps,
+                                       device_steps=args.device_steps,
+                                       **data_kw))
     print(json.dumps(results, indent=2))
     return results
 

@@ -11,9 +11,16 @@ Runs on the card unless given ``--device cpu``. Checkpoints go to
 ``<out_dir>/<dataset>/checkpoint_{best_pose,best_refine,current}`` in the JAX
 package's format. ``--bf16`` trains with bf16 compute (float32 parameters,
 Adam state and checkpoints) and ``--remat_cnn`` recomputes the CNN in the
-backward pass. Options the port does not run yet (``--data_parallel``,
-``--trace_dir``) raise ``NotImplementedError`` naming their ROADMAP.md
-section.
+backward pass. ``--trace_dir``, which the port does not run yet, raises
+``NotImplementedError`` naming its ROADMAP.md section.
+
+``--data_parallel`` runs one rank per process, started by a launcher that
+sets ``WORLD_SIZE`` / ``RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT`` (NCCL on
+the cards; gloo with ``--device cpu``); ``--batch_size`` is the global
+batch, which the world size must divide::
+
+    torchrun --nproc_per_node=<cards> -m densefusion_tpu_torch.cli.train \\
+        --data_parallel --dataset ycb --dataset_root /data/YCB_Video_Dataset
 """
 
 from __future__ import annotations
@@ -65,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_dir", default="experiments/logs")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard batches over all available devices (not "
-                        "ported yet: ROADMAP.md §1 D)")
+                   help="shard batches over all ranks of a launcher "
+                        "(torchrun: one process per card)")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 compute (float32 parameters and outputs)")
     p.add_argument("--remat_cnn", action="store_true",
@@ -85,9 +92,6 @@ def main(argv=None):
     from densefusion_tpu_torch.train import Trainer
     from densefusion_tpu_torch.utils.config import RunConfig, check_ported
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported yet (ROADMAP.md §1 D)")
     if args.trace_dir is not None:
         raise NotImplementedError(
             "--trace_dir is not ported yet (ROADMAP.md §1 G, "
@@ -132,12 +136,30 @@ def main(argv=None):
             f"error: dataset root not found: {args.dataset_root!r} "
             f"(expected the layout described in docs/DATA.md)")
 
-    trainer = Trainer(cfg, device=args.device)
+    shard_batch, own_group = None, False
+    if args.data_parallel:
+        import torch.distributed as dist
+
+        from densefusion_tpu_torch.parallel import (
+            initialize_distributed, make_mesh, make_shard_batch_fn,
+        )
+        own_group = not dist.is_initialized()
+        initialize_distributed(device=args.device)
+        shard_batch = make_shard_batch_fn(make_mesh(device=args.device))
+
+    trainer = Trainer(cfg, device=args.device, shard_batch=shard_batch)
     try:
         trainer.setup(resume=args.resume or None)
         trainer.run()
+        if shard_batch is not None:
+            # every rank's parameters, for the check that the ranks agree
+            print(f"rank {shard_batch.sharding.index} of "
+                  f"{shard_batch.sharding.size}: parameters sha256 "
+                  f"{trainer.param_digest()}", flush=True)
     finally:
         trainer.close()   # the loaders' fork workers; the state stays
+        if own_group:
+            dist.destroy_process_group()
 
     if trainer.restart_requested:
         # RSS-guard exec-restart: the same interpreter and argv, resuming

@@ -148,12 +148,24 @@ class BatchLoader:
     persistent fork workers + a shared-memory sample ring (near-linear
     scaling, linux fork only — falls back to threads elsewhere). Sample
     content is identical in every mode: per-sample RNG is derived from
-    (seed, epoch, index), never from worker identity."""
+    (seed, epoch, index), never from worker identity.
+
+    ``shard=(rank, ranks)`` loads one data-parallel rank's rows of each
+    global batch of ``batch_size`` (the batches and their order are the
+    unsharded loader's): the rank's ``ceil(len / ranks)`` consecutive rows,
+    the same samples bit for bit. A batch that the ranks do not divide
+    (the last one when ``drop_last=False``) is padded at its end with
+    invalid samples (``PoseSample.invalid`` at the dataset's shapes)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  collate_fn: Callable = collate, drop_last: bool = True,
                  num_workers: int = 4, seed: int = 0,
-                 worker_mode: str = "thread"):
+                 worker_mode: str = "thread",
+                 shard: tuple[int, int] | None = None):
+        if shard is not None and not 0 <= shard[0] < shard[1]:
+            raise ValueError(f"shard {shard} is not (rank, ranks)")
+        self.shard = shard
+        self._pad_sample = None
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -206,6 +218,23 @@ class BatchLoader:
             batches.append(rem)
         return batches
 
+    def _rank_rows(self, idx: np.ndarray) -> tuple[np.ndarray, int]:
+        """This rank's dataset indices of one global batch, and the
+        invalid rows that pad them to the rank's share."""
+        rank, ranks = self.shard
+        per = -(-len(idx) // ranks)
+        mine = idx[rank * per:(rank + 1) * per]
+        return mine, per - len(mine)
+
+    def _collate(self, samples: list, pad: int):
+        if pad:
+            if self._pad_sample is None:
+                s = self.dataset[0]
+                self._pad_sample = PoseSample.invalid(
+                    s.points.shape[0], s.target.shape[0], s.img.shape[0])
+            samples = samples + [self._pad_sample] * pad
+        return self.collate_fn(samples)
+
     def epoch(self, epoch: int = 0, start_batch: int = 0) -> Iterator:
         """Iterate batches of one epoch, optionally resuming mid-epoch."""
         if hasattr(self.dataset, "set_epoch"):
@@ -213,12 +242,16 @@ class BatchLoader:
             # and bit-reproducible regardless of worker scheduling
             self.dataset.set_epoch(epoch)
         batches = self.batch_indices(epoch)[start_batch:]
+        pads = [0] * len(batches)
+        if self.shard is not None:
+            batches, pads = zip(*map(self._rank_rows, batches)) \
+                if batches else ((), ())
         if self.num_workers <= 1:
-            for idx in batches:
-                yield self.collate_fn([self.dataset[int(i)] for i in idx])
+            for idx, pad in zip(batches, pads):
+                yield self._collate([self.dataset[int(i)] for i in idx], pad)
             return
         if self.worker_mode == "process":
-            yield from self._epoch_process(batches, epoch)
+            yield from self._epoch_process(batches, pads, epoch)
             return
         # sliding-window submission: the next batches' samples assemble in
         # the pool WHILE the current batch is collated/consumed — a per-batch
@@ -236,14 +269,14 @@ class BatchLoader:
             while next_batch < len(batches) and len(pending) <= ahead:
                 pending.append(submit(batches[next_batch]))
                 next_batch += 1
-            while pending:
+            for pad in pads:
                 futs = pending.pop(0)
                 if next_batch < len(batches):
                     pending.append(submit(batches[next_batch]))
                     next_batch += 1
-                yield self.collate_fn([f.result() for f in futs])
+                yield self._collate([f.result() for f in futs], pad)
 
-    def _epoch_process(self, batches: list[np.ndarray],
+    def _epoch_process(self, batches: list[np.ndarray], pads: list[int],
                        epoch: int) -> Iterator:
         """Stream one epoch through the fork-worker sample ring: tasks are
         issued in order as slots free up; batches are yielded strictly in
@@ -263,17 +296,19 @@ class BatchLoader:
                     pool.submit(free.pop(), epoch, i, (b, j))
                     next_task += 1
                     in_flight += 1
-                slot, (b, j) = pool.result()
-                in_flight -= 1
-                landed.setdefault(b, {})[j] = slot
+                if in_flight:   # none when the next batches are padding
+                    slot, (b, j) = pool.result()
+                    in_flight -= 1
+                    landed.setdefault(b, {})[j] = slot
                 while (next_yield < len(batches)
                        and len(landed.get(next_yield, ())) ==
                        len(batches[next_yield])):
-                    got = landed.pop(next_yield)
+                    got = landed.pop(next_yield, {})
                     slots = [got[j] for j in range(len(got))]
                     # collate copies out of the slab (np.stack), so the
                     # slots can be recycled as soon as the batch is built
-                    batch = self.collate_fn([pool.slots[s] for s in slots])
+                    batch = self._collate([pool.slots[s] for s in slots],
+                                          pads[next_yield])
                     free.extend(slots)
                     next_yield += 1
                     yield batch

@@ -216,7 +216,13 @@ class Dropout2d(nn.Module):
     ``forward`` (torch's default generator when it is None), with float32
     keep probabilities whatever ``x``'s type (flax's Bernoulli draw takes a
     Python float; a bf16 0.7 would be 0.69921875), and applied in ``x``'s
-    type. The identity in eval mode."""
+    type. The identity in eval mode.
+
+    ``batch_rows=(start, stop, total)`` says that ``x`` holds rows
+    ``start:stop`` of a batch of ``total`` (one rank's rows of a
+    data-parallel batch): the mask is drawn for the whole batch and its
+    rows kept, so the masks and the generator's next state are the ones a
+    forward over the whole batch on one device gives."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -225,13 +231,19 @@ class Dropout2d(nn.Module):
         self.p = p
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                batch_rows: tuple[int, int, int] | None = None
+                ) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
+        start, stop, total = batch_rows or (0, x.shape[0], x.shape[0])
+        if not 0 <= start <= stop <= total or stop - start != x.shape[0]:
+            raise ValueError(f"batch_rows {batch_rows} do not fit a batch "
+                             f"of {x.shape[0]} rows")
         keep = 1.0 - self.p
-        probs = torch.full(x.shape[:2] + (1,) * (x.dim() - 2), keep,
-                           dtype=torch.float32, device=x.device)
-        mask = torch.bernoulli(probs, generator=generator)
+        probs = torch.full((total,) + x.shape[1:2] + (1,) * (x.dim() - 2),
+                           keep, dtype=torch.float32, device=x.device)
+        mask = torch.bernoulli(probs, generator=generator)[start:stop]
         return torch.where(mask.bool(), x / keep, 0.0)
 
 

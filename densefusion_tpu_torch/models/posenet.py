@@ -16,6 +16,8 @@ outputs are cast to float32 (``densefusion_tpu/models/posenet.py:36-43,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -122,7 +124,10 @@ class PoseNet(nn.Module):
     pred_r (B, N, 4) unnormalized wxyz quaternions; pred_t (B, N, 3)
     translation offsets from each point; pred_c (B, N) confidence;
     pred_c_logit (B, N); emb (B, N, emb_dim) color embedding, detached.
-    In train mode the CNN's dropout draws from ``generator``.
+    In train mode the CNN's dropout draws from ``generator``; with
+    ``batch_rows=(start, stop, total)`` the inputs are rows ``start:stop``
+    of a batch of ``total`` (one rank's rows in data-parallel training) and
+    the masks are those rows of the whole batch's.
 
     Options of the JAX ``PoseNet``: ``cnn_variant`` is any trunk of
     ``RESNET_SPECS``; ``dtype`` the compute type (None: float32; the
@@ -173,17 +178,21 @@ class PoseNet(nn.Module):
                         + cast(b, x)[:, None, :])
         return outs
 
-    def _cnn(self, img, sample_at, generator):
+    def _cnn(self, img, sample_at, generator, batch_rows=None):
         return self.cnn.model.module(img, sample_at=sample_at,
-                                     generator=generator)
+                                     generator=generator,
+                                     batch_rows=batch_rows)
 
-    def forward(self, img, points, choose, obj, generator=None):
+    def forward(self, img, points, choose, obj, generator=None,
+                batch_rows=None):
         choose = choose.long()
         sample_at = choose if self.sparse_emb else None
         if self.remat_cnn and torch.is_grad_enabled():
-            emb = checkpointed(self._cnn, generator, img, sample_at)
+            emb = checkpointed(functools.partial(self._cnn,
+                                                 batch_rows=batch_rows),
+                               generator, img, sample_at)
         else:
-            emb = self._cnn(img, sample_at, generator)
+            emb = self._cnn(img, sample_at, generator, batch_rows)
         if not self.sparse_emb:   # (B, H, W, d) map -> (B, N, d) at choose
             b, h, w, d = emb.shape
             emb = torch.gather(emb.reshape(b, h * w, d), 1,

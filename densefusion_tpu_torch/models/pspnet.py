@@ -222,13 +222,17 @@ class PSPNet(nn.Module):
 
     def forward(self, img: torch.Tensor,
                 sample_at: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """``generator`` draws the train-mode dropout masks."""
+                generator: torch.Generator | None = None,
+                batch_rows: tuple[int, int, int] | None = None
+                ) -> torch.Tensor:
+        """``generator`` draws the train-mode dropout masks, for the whole
+        batch that ``batch_rows`` places ``img`` in when it is given
+        (:class:`~densefusion_tpu_torch.models.layers.Dropout2d`)."""
         w_full = img.shape[2]
         f, _ = self.feats(img.permute(0, 3, 1, 2))
-        p = self.drop_1(self.psp(f), generator)
-        p = self.drop_2(self.up_1(p), generator)
-        p = self.drop_2(self.up_2(p), generator)
+        p = self.drop_1(self.psp(f), generator, batch_rows)
+        p = self.drop_2(self.up_1(p), generator, batch_rows)
+        p = self.drop_2(self.up_2(p), generator, batch_rows)
         if sample_at is None:
             p = conv2d(self.final[0], self.up_3(p)).permute(0, 2, 3, 1)
             return F.log_softmax(p.float(), dim=-1)           # (B, H, W, emb)

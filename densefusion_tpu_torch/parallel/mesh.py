@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import math
 import os
+import queue as queue_mod
+import time
 from datetime import timedelta
 
 import torch
@@ -109,3 +111,48 @@ def local_batch_slice(global_batch: int, mesh: DeviceMesh) -> slice:
     per = global_batch // n
     i = mesh.get_rank()
     return slice(i * per, (i + 1) * per)
+
+
+def spawn_ranks(target, world: int, args: tuple = (),
+                timeout_s: float = 600.0) -> dict:
+    """Run ``target(rank, world, *args, queue)`` in ``world`` spawned
+    processes, one per rank (one per card on CUDA). Each rank puts one
+    ``(rank, result, error)`` on ``queue``, ``error`` a traceback or None.
+    Returns ``{rank: result}``. Raises ``RuntimeError`` with the first
+    error, when a rank exits without putting its tuple, or after
+    ``timeout_s``; every process has exited when it returns or raises."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, world, *args, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + timeout_s
+    try:
+        while len(results) < world:
+            try:
+                rank, res, err = q.get(timeout=5.0)
+            except queue_mod.Empty:
+                # a rank's tuple reaches the pipe before the rank exits
+                lost = [r for r, p in enumerate(procs)
+                        if p.exitcode is not None and r not in results]
+                if lost or time.monotonic() > deadline:
+                    missing = sorted(set(range(world)) - set(results))
+                    raise RuntimeError(
+                        f"ranks {missing} of {world} gave no result within "
+                        f"{timeout_s} s (exit codes "
+                        f"{[p.exitcode for p in procs]})") from None
+                continue
+            if err is not None:
+                raise RuntimeError(f"rank {rank} of {world} failed:\n{err}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return results

@@ -54,14 +54,21 @@ def _tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
-def replicate(tree: Any, mesh: DeviceMesh) -> Any:
-    """Every tensor of ``tree`` as rank 0 holds it, on every rank of the
-    mesh (copies; the inputs are untouched). Other leaves pass through."""
+def replicate(tree: Any, over: DeviceMesh | BatchSharding,
+              in_place: bool = False) -> Any:
+    """Every tensor of ``tree`` as the first rank holds it, on every rank:
+    of the whole mesh (``over`` a ``DeviceMesh``) or of one axis's group
+    (``over`` a :class:`BatchSharding`). Copies, the inputs untouched; or,
+    with ``in_place``, the tensors themselves overwritten (modules'
+    parameters and buffers). Other leaves pass through."""
+    group = over.group if isinstance(over, BatchSharding) else None
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+
     def bcast(x):
         if not isinstance(x, torch.Tensor):
             return x
-        out = x.detach().clone().contiguous()
-        dist.broadcast(out, src=0)
+        out = x.data if in_place else x.detach().clone().contiguous()
+        dist.broadcast(out, src=src, group=group)
         return out
     return _tree_map(bcast, tree)
 
@@ -69,7 +76,9 @@ def replicate(tree: Any, mesh: DeviceMesh) -> Any:
 def make_shard_batch_fn(mesh: DeviceMesh, axis: str = "data"):
     """Returns f(batch) keeping this rank's axis-0 slice of every leaf with
     ``ndim >= 1`` (tensors or numpy arrays); scalars and 0-d leaves stay
-    whole, as JAX replicates them."""
+    whole, as JAX replicates them. ``f.sharding`` is the axis's
+    :class:`BatchSharding`: ``Trainer(shard_batch=f)`` reads it to load and
+    step on this rank's rows only."""
     sharding = batch_sharding(mesh, axis)
 
     def f(batch):
@@ -77,4 +86,6 @@ def make_shard_batch_fn(mesh: DeviceMesh, axis: str = "data"):
             lambda x: x[sharding.slice(x.shape[0])]
             if getattr(x, "ndim", 0) >= 1 else x, batch)
 
+    f.sharding = sharding
     return f
+

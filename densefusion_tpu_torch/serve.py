@@ -17,6 +17,11 @@ or from state_dicts under the reference's names::
     posenet, refiner = PoseNet(num_obj=21), PoseRefineNet(num_obj=21)
     est = PoseEstimator(posenet, refiner, posenet_state, refiner_state,
                         num_points=1000, crop_size=192, refine_iters=2)
+
+Over several cards, one process per card, each calling with the same
+samples (``densefusion_tpu_torch.parallel.make_mesh``)::
+
+    est = PoseEstimator.from_checkpoint(..., mesh=make_mesh())
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from densefusion_tpu_torch.data.common import (
     assemble_sample, pinhole_point_fn,
@@ -37,11 +44,24 @@ from densefusion_tpu_torch.geometry.camera import CameraIntrinsics
 class PoseEstimator:
     def __init__(self, posenet, refiner, posenet_state, refiner_state,
                  num_points: int = 500, crop_size: int = 192,
-                 refine_iters: int = 2, seed: int = 0, device=None):
+                 refine_iters: int = 2, seed: int = 0, device=None,
+                 mesh=None):
         """``posenet_state`` / ``refiner_state`` are state_dicts under the
         reference's names (see :mod:`densefusion_tpu_torch.compat`), loaded
         with ``strict=True``; ``refiner_state`` may be None when there is no
-        refiner. ``device=None`` means CUDA, and raises without a card."""
+        refiner. ``device=None`` means CUDA, and raises without a card.
+
+        ``mesh`` (a ``DeviceMesh`` with a ``data`` axis; every rank builds
+        its estimator and calls it with the same samples) serves over its
+        ranks, as ``densefusion_tpu/serve.py``'s ``mesh=`` does: rank 0's
+        parameters are replicated once, each batch is padded to a multiple
+        of the ranks with invalid samples, each rank runs its rows, and the
+        poses are gathered, so every rank returns the whole batch. ``device``
+        must be the mesh's (the rank's card, or the CPU under gloo)."""
+        from densefusion_tpu_torch.parallel.sharding import (
+            batch_sharding, replicate,
+        )
+
         posenet.load_state_dict(posenet_state, strict=True)
         if refiner is not None:
             refiner.load_state_dict(refiner_state, strict=True)
@@ -51,6 +71,12 @@ class PoseEstimator:
                                           refine_iters=refine_iters,
                                           device=device)
         self.rng = np.random.default_rng(seed)
+        self.sharding = None if mesh is None else batch_sharding(mesh)
+        if self.sharding is not None:
+            nets = [m for m in (posenet, refiner) if m is not None]
+            replicate([t for m in nets
+                       for t in (*m.parameters(), *m.buffers())],
+                      self.sharding, in_place=True)
 
     @classmethod
     def from_checkpoint(cls, path: str, num_obj: int, num_points: int = 500,
@@ -111,12 +137,24 @@ class PoseEstimator:
 
     def estimate_batch(self, samples: Sequence[PoseSample]):
         """-> numpy (quat (B, 4) wxyz, trans (B, 3) meters, conf (B,),
-        valid (B,) bool)."""
-        batch = collate(list(samples))
-        quat, trans, conf = self.pipeline(batch.img, batch.points,
-                                          batch.choose, batch.obj_idx)
-        return (quat.cpu().numpy(), trans.cpu().numpy(), conf.cpu().numpy(),
-                np.asarray(batch.valid))
+        valid (B,) bool). On a mesh, every rank passes the same samples and
+        gets the whole batch's poses."""
+        samples = list(samples)
+        n = len(samples)
+        sh = self.sharding
+        if sh is not None:
+            pad = PoseSample.invalid(self.num_points,
+                                     samples[0].model_points.shape[0],
+                                     self.crop_size)
+            samples += [pad] * (-n % sh.size)
+        batch = collate(samples)
+        rows = batch if sh is None else PoseSample(
+            *(x[sh.slice(len(samples))] for x in batch))
+        out = self.pipeline(rows.img, rows.points, rows.choose, rows.obj_idx)
+        if sh is not None:
+            out = tuple(_gather_rows(x, sh) for x in out)
+        quat, trans, conf = (x[:n].cpu().numpy() for x in out)
+        return quat, trans, conf, np.asarray(batch.valid)[:n]
 
     def estimate(self, rgb, depth, mask, obj_idx, intrinsics,
                  unit_scale: float = 1.0, bbox=None):
@@ -159,3 +197,10 @@ class PoseEstimator:
         quat, trans, conf, _ = self.estimate_batch(samples)
         return {i: (quat[k], trans[k], float(conf[k]))
                 for k, i in enumerate(kept)}
+
+
+def _gather_rows(x: torch.Tensor, sharding) -> torch.Tensor:
+    """Every rank's rows of ``x``, concatenated in rank order."""
+    parts = [torch.empty_like(x) for _ in range(sharding.size)]
+    dist.all_gather(parts, x.contiguous(), group=sharding.group)
+    return torch.cat(parts)

@@ -12,15 +12,26 @@ replays the exact tail of an epoch, a STOP file, and the RSS guard that asks
 Batches go to the device through :func:`densefusion_tpu_torch.data.
 to_device`. Nothing in an epoch waits for the card except its log points:
 the running distance stays on the device until then.
+
+Data parallelism (``shard_batch=``, the JAX trainer's hook, from
+:func:`densefusion_tpu_torch.parallel.make_shard_batch_fn`): one process
+per rank, each loading and stepping on its rows of every global batch of
+``cfg.batch_size``. The ranks start from rank 0's parameters, sum the test
+epoch's distances so every rank takes the same curriculum gate, and stop
+or restart together; only rank 0 writes checkpoints, metrics and the log
+file, and the others wait for each checkpoint at a barrier.
 """
 
 from __future__ import annotations
 
+import hashlib
+import logging
 import os
 import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from densefusion_tpu_torch.data import (
     BatchLoader, CADDataset, LineModDataset, PrefetchIterator, YCBDataset,
@@ -28,6 +39,7 @@ from densefusion_tpu_torch.data import (
 )
 from densefusion_tpu_torch.device import resolve_device
 from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+from densefusion_tpu_torch.parallel.sharding import replicate
 from densefusion_tpu_torch.train.checkpoint import (
     load_checkpoint, peek_curriculum, save_checkpoint,
 )
@@ -57,6 +69,13 @@ def _rss_gb() -> float:
     return 0.0
 
 
+class _NoMetrics:
+    """The metrics stream of a rank that writes no files."""
+
+    def write(self, **record) -> None:
+        pass
+
+
 def build_dataset(cfg: RunConfig, mode: str, refine: bool):
     """Dataset factory (``tools/train.py:99-114``): YCB, LineMOD or CAD."""
     common = dict(root=cfg.dataset_root, mode=mode,
@@ -84,14 +103,29 @@ class Trainer:
     builds both networks with bf16 compute and ``cfg.remat_cnn`` the PoseNet
     with its CNN recomputed in the backward pass
     (``densefusion_tpu/train/loop.py:85-91``); parameters, gradients, Adam
-    state and checkpoints stay float32."""
+    state and checkpoints stay float32. ``shard_batch`` makes it one rank of
+    a data-parallel run (module docstring); ``device`` is then the rank's
+    card (``"cuda"``: the current one) or the CPU under gloo."""
 
     def __init__(self, cfg: RunConfig, posenet: Optional[PoseNet] = None,
                  refiner: Optional[PoseRefineNet] = None,
-                 dataset_factory: Callable = build_dataset, device=None):
+                 dataset_factory: Callable = build_dataset, device=None,
+                 shard_batch: Optional[Callable] = None):
         check_ported(cfg, device)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.sharding = None
+        if shard_batch is not None:
+            self.sharding = getattr(shard_batch, "sharding", None)
+            if self.sharding is None:
+                raise ValueError("shard_batch must come from "
+                                 "parallel.make_shard_batch_fn")
+            if cfg.batch_size % self.sharding.size:
+                raise ValueError(
+                    f"batch_size {cfg.batch_size} does not split over "
+                    f"{self.sharding.size} ranks")
+        # rank 0 of the data axis (or the one process) writes the files
+        self.writer = self.sharding is None or self.sharding.index == 0
         dtype = torch.bfloat16 if cfg.bf16_compute else None
         self.posenet = posenet or PoseNet(num_obj=cfg.num_objects,
                                           dtype=dtype,
@@ -103,10 +137,14 @@ class Trainer:
         self.curriculum = Curriculum(lr=cfg.lr, w=cfg.w)
         self.state = None
         self.restart_requested = False
-        self.metrics = MetricsWriter(
-            os.path.join(cfg.log_dir, "metrics.jsonl"))
-        self.logger = setup_logger(
-            "train", os.path.join(cfg.log_dir, "train_log.txt"))
+        if self.writer:
+            self.metrics = MetricsWriter(
+                os.path.join(cfg.log_dir, "metrics.jsonl"))
+            self.logger = setup_logger(
+                "train", os.path.join(cfg.log_dir, "train_log.txt"))
+        else:
+            self.metrics = _NoMetrics()
+            self.logger = setup_logger("train", None, level=logging.WARNING)
         self._use_adds = bool(cfg.sym_list)
 
     # -- setup ------------------------------------------------------------
@@ -127,6 +165,28 @@ class Trainer:
                 resume, self.state, restore_opt=True)
             self.logger.info(f"resumed from {resume} at epoch "
                              f"{self.curriculum.epoch}")
+        if self.sharding is not None:
+            replicate([*self.posenet.parameters(), *self.posenet.buffers(),
+                       *self.refiner.parameters(), *self.refiner.buffers()],
+                      self.sharding, in_place=True)
+
+    def param_digest(self) -> str:
+        """SHA-256 of both networks' parameters and buffers, in
+        ``state_dict`` order: equal on data-parallel ranks in lockstep."""
+        h = hashlib.sha256()
+        for module in (self.posenet, self.refiner):
+            for v in module.state_dict().values():
+                h.update(v.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()
+
+    def _any_rank(self, flag: bool) -> bool:
+        """``flag`` of this process, or of any rank of a data-parallel run
+        (a collective: every rank calls it at the same point)."""
+        if self.sharding is None:
+            return flag
+        t = torch.tensor([int(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.sharding.group)
+        return bool(t.item())
 
     def _build_data(self, refine: bool) -> None:
         cfg = self.cfg
@@ -135,14 +195,16 @@ class Trainer:
         self.close()
         self.train_ds = self.dataset_factory(cfg, "train", refine)
         self.test_ds = self.dataset_factory(cfg, "test", refine)
+        shard = None if self.sharding is None \
+            else (self.sharding.index, self.sharding.size)
         self.train_loader = BatchLoader(
             self.train_ds, cfg.batch_size, shuffle=True,
             num_workers=cfg.num_workers, seed=cfg.seed,
-            worker_mode=cfg.worker_mode)
+            worker_mode=cfg.worker_mode, shard=shard)
         self.test_loader = BatchLoader(
             self.test_ds, cfg.batch_size, shuffle=False,
             num_workers=cfg.num_workers, drop_last=False, seed=cfg.seed,
-            worker_mode=cfg.worker_mode)
+            worker_mode=cfg.worker_mode, shard=shard)
 
     def _rebuild_steps(self) -> None:
         """The current phase's steps; each train step makes a fresh Adam
@@ -151,10 +213,10 @@ class Trainer:
         self.state.optimizer.param_groups[0]["lr"] = cur.lr
         if cur.refine_started:
             self.train_step = make_refine_train_step(
-                self.state, cfg.refine_iters, cfg.grad_accum)
+                self.state, cfg.refine_iters, cfg.grad_accum, self.sharding)
         else:
             self.train_step = make_pose_train_step(
-                self.state, self._use_adds, cfg.grad_accum)
+                self.state, self._use_adds, cfg.grad_accum, self.sharding)
         self.eval_step = make_eval_step(
             self.state, cfg.refine_iters if cur.refine_started else 0,
             self._use_adds)
@@ -213,6 +275,11 @@ class Trainer:
             dis, valid = self.eval_step(to_device(batch, self.device), cur.w)
             dis_sum += (dis * valid).sum()
             count += valid.sum()
+        if self.sharding is not None:
+            # the whole test split's average: every rank takes the same gate
+            both = torch.stack([dis_sum, count])
+            dist.all_reduce(both, group=self.sharding.group)
+            dis_sum, count = both[0], both[1]
         count = int(count)
         if count == 0:
             # an empty or all-invalid test split must not read as a perfect
@@ -240,13 +307,18 @@ class Trainer:
                 loader.close()
 
     def _save(self, tag: str) -> None:
-        path = os.path.join(self.cfg.out_dir, f"checkpoint_{tag}")
-        save_checkpoint(path, self.state, self.curriculum, self.cfg)
+        """Rank 0 writes the checkpoint; the other ranks wait for it."""
+        if self.writer:
+            path = os.path.join(self.cfg.out_dir, f"checkpoint_{tag}")
+            save_checkpoint(path, self.state, self.curriculum, self.cfg)
+        if self.sharding is not None:
+            dist.barrier(group=self.sharding.group)
 
     def _check_rss(self) -> None:
         """The RSS guard (``cfg.rss_restart_gb``), called right after a
         'current' save so a restart resumes at most
-        ``checkpoint_every_steps`` steps back."""
+        ``checkpoint_every_steps`` steps back. Data-parallel ranks restart
+        together when any one crosses the limit."""
         limit = self.cfg.rss_restart_gb
         if not limit:
             return
@@ -256,6 +328,7 @@ class Trainer:
                 f"process RSS {rss:.1f} GiB > rss_restart_gb={limit}: "
                 "requesting exec-restart (state just saved to "
                 "checkpoint_current)")
+        if self._any_rank(rss > limit):
             raise RestartRequested()
 
     # -- curriculum -------------------------------------------------------
@@ -313,14 +386,16 @@ class Trainer:
             # `touch <out_dir>/STOP` ends the run at this epoch boundary
             # with best / current saved; the marker is consumed so a resume
             # into the same out_dir does not stop at once
+            # (data-parallel ranks stop together when any one sees it)
             stop_file = os.path.join(cfg.out_dir, "STOP")
-            if os.path.exists(stop_file):
+            if self._any_rank(os.path.exists(stop_file)):
                 self.logger.info(
                     f"stop requested ({stop_file}); ending at epoch "
                     f"{cur.epoch - 1} — resume with --resume "
                     f"{os.path.join(cfg.out_dir, 'checkpoint_current')}")
-                try:
-                    os.remove(stop_file)
-                except OSError:
-                    pass
+                if self.writer:
+                    try:
+                        os.remove(stop_file)
+                    except OSError:
+                        pass
                 break

@@ -36,9 +36,11 @@ class GradAccum:
         self.mini_step = 0
         self.gradient_step = 0
 
-    def step(self, optimizer: torch.optim.Optimizer) -> None:
+    def step(self, optimizer: torch.optim.Optimizer, sync=None) -> None:
         """Fold the parameters' ``.grad`` into the mean; on the k-th
-        micro-step, step ``optimizer`` on the mean."""
+        micro-step, step ``optimizer`` on the mean. ``sync(grads)``, when
+        given, reduces the mean in place first (a data-parallel rank sums
+        the ranks' means: once per applied update)."""
         n = self.mini_step
         for p, a in zip(self.params, self.acc):
             g = p.grad if p.grad is not None else torch.zeros_like(a)
@@ -48,6 +50,8 @@ class GradAccum:
             return
         for p, a in zip(self.params, self.acc):
             p.grad = a.clone()
+        if sync is not None:
+            sync([p.grad for p in self.params])
         optimizer.step()
         for a in self.acc:
             a.zero_()

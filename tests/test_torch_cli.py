@@ -1,8 +1,9 @@
 """The port's CLIs against the JAX package's, on the CPU:
 
 * ``cli.train``'s parser has the JAX parser's options and defaults (plus
-  ``--device``); the options the port lacks raise ``NotImplementedError``
-  naming their ROADMAP.md section, and ``--bf16`` / ``--remat_cnn`` train;
+  ``--device``); the option the port lacks raises ``NotImplementedError``
+  naming its ROADMAP.md section, ``--bf16`` / ``--remat_cnn`` train, and
+  ``--data_parallel`` trains on 2 spawned gloo ranks;
   one epoch writes a checkpoint that the JAX package's
   ``load_checkpoint(restore_opt=True)`` restores into the structures its
   own ``PoseNet`` / ``PoseRefineNet`` / Adam have;
@@ -102,11 +103,57 @@ def test_parsers_match_jax(name):
 
 
 @pytest.mark.parametrize("flags,section", [
-    (["--data_parallel"], "§1 D"), (["--trace_dir", "x"], "§1 G")])
+    pytest.param(["--trace_dir", "x"], "§1 G", id="flags1-§1 G")])
 def test_unported_options_raise(root, tmp_path, flags, section):
     with pytest.raises(NotImplementedError, match=section):
         train.main(["--dataset_root", root, "--out_dir", str(tmp_path),
                     "--device", "cpu", *flags])
+
+
+def test_data_parallel_runs(root, tmp_path):
+    """``--data_parallel --device cpu`` (ROADMAP.md §1 D, refused until it
+    was ported) on 2 spawned ranks whose gloo group comes from a launcher's
+    environment alone (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``, as ``torchrun`` sets): one epoch of the global batch
+    of 4, 2 rows a rank; both ranks end with the same parameters, rank 0
+    alone writes, and its checkpoint loads into the port's networks."""
+    from densefusion_tpu_torch.models import PoseNet
+    from densefusion_tpu_torch.train import load_state_dicts
+
+    from tests import torch_dist_worker
+
+    out = str(tmp_path / "out")
+    argv = ["--dataset", "linemod", "--dataset_root", root, "--objlist", "1",
+            "10", "--nepoch", "1", "--repeat_epoch", "1", "--batch_size", "4",
+            "--workers", "1", "--crop_size", "32", "--num_points", "32",
+            "--out_dir", out, "--log_dir", str(tmp_path / "logs"),
+            "--device", "cpu", "--data_parallel"]
+    ranks = torch_dist_worker.spawn("cli", {"argv": argv},
+                                    torch_dist_worker.launcher_env(2), 2, 180)
+    assert [r["epoch"] for r in ranks] == [2, 2]
+    assert [r["writer"] for r in ranks] == [True, False]
+    assert [r["batch_rows"] for r in ranks] == [2, 2]
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    pose, _ = load_state_dicts(os.path.join(out, "linemod",
+                                            "checkpoint_current"))
+    PoseNet(num_obj=2).load_state_dict(pose, strict=True)
+
+
+def test_data_parallel_batch_must_split(root, tmp_path):
+    """A global batch that the ranks do not divide is refused before any
+    work."""
+    from densefusion_tpu_torch.parallel.sharding import BatchSharding
+    from densefusion_tpu_torch.train import Trainer
+    from densefusion_tpu_torch.utils.config import RunConfig
+
+    def shard(batch):
+        return batch
+
+    shard.sharding = BatchSharding(group=None, size=3, index=0)
+    cfg = RunConfig.preset("linemod", dataset_root=root, batch_size=4,
+                           log_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="does not split over 3"):
+        Trainer(cfg, device="cpu", shard_batch=shard)
 
 
 @pytest.mark.parametrize("flags,section", [

@@ -314,3 +314,115 @@ def test_segnet_step_on_card_matches_cpu():
     p_card, i_card = max_pool_argmax(m.to(dev))
     assert torch.equal(i_cpu, i_card.cpu()) and torch.equal(
         p_cpu, p_card.cpu())
+
+
+def _one_rank_mesh():
+    """A one-rank NCCL mesh in this process (torn down by the caller)."""
+    from densefusion_tpu_torch.parallel import make_mesh
+
+    return make_mesh(1)
+
+
+def _dp_batch(rng, b=4, n=32, m=32, crop=32, num_obj=2):
+    from densefusion_tpu_torch.data import PoseSample
+
+    return PoseSample(
+        points=(rng.standard_normal((b, n, 3)) * 0.05 + [0, 0, 0.6])
+        .astype(np.float32),
+        choose=rng.integers(0, crop * crop, (b, n)).astype(np.int32),
+        img=rng.standard_normal((b, crop, crop, 3)).astype(np.float32),
+        target=(rng.standard_normal((b, m, 3)) * 0.05).astype(np.float32),
+        model_points=(rng.standard_normal((b, m, 3)) * 0.05)
+        .astype(np.float32),
+        obj_idx=rng.integers(0, num_obj, (b,)).astype(np.int32),
+        sym=np.arange(b) == 0, valid=np.arange(b) < b // 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", [1, 2])
+def test_one_rank_nccl_dp_step_equals_one_device_step(phase):
+    """The data-parallel phase-1 and phase-2 steps on a one-rank NCCL mesh
+    against the one-device steps, each from the same seeded state (dropout
+    on, half the rows invalid): loss, ``dis`` and every parameter after the
+    step within 1e-6 of each tensor's largest element, the gradients within
+    1e-5. The card's float32 backward is not bit-reproducible (cuDNN's
+    backward and the gathers' scatter-adds sum with atomics): the
+    one-device step taken again differs from the first by up to ~2e-6 of a
+    tensor's largest gradient, and that figure is reported beside."""
+    import torch.distributed as dist
+
+    from densefusion_tpu_torch.data import to_device
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.parallel import make_shard_batch_fn
+    from densefusion_tpu_torch.train import (
+        create_train_state, make_pose_train_step, make_refine_train_step,
+    )
+
+    dev = _cuda()
+    batch = to_device(_dp_batch(np.random.default_rng(3)), dev)
+    try:
+        sharding = make_shard_batch_fn(_one_rank_mesh()).sharding
+        runs = []
+        for sh in (None, None, sharding):
+            state = create_train_state(PoseNet(2), PoseRefineNet(2), 1e-3, 0,
+                                       dev)
+            module = state.posenet if phase == 1 else state.refiner
+            step = (make_pose_train_step(state, True, 1, sh) if phase == 1
+                    else make_refine_train_step(state, 2, 1, sh))
+            m = step(batch, 0.015)
+            runs.append(([float(m["loss"]), float(m["dis"])],
+                         {k: p.grad.clone()
+                          for k, p in module.named_parameters()},
+                         {k: v.clone() for k, v in
+                          module.state_dict().items()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    def rel(got, want):
+        return {k: float((got[k] - v).abs().max())
+                / float(v.abs().max().clamp_min(1e-30))
+                for k, v in want.items()}
+
+    (m1, g1, p1), (_, g_again, _), (m2, g2, p2) = runs
+    repeat = max(rel(g_again, g1).values())
+    print(f"phase {phase}: the one-device step repeated, gradients within "
+          f"{repeat:.3g} of each tensor's largest")
+    np.testing.assert_allclose(m2, m1, rtol=1e-6)
+    for k, err in rel(g2, g1).items():
+        assert err <= 1e-5, (k, err, f"one-device repeat {repeat:.3g}")
+    for k, err in rel(p2, p1).items():
+        assert err <= 1e-6, (k, err)
+
+
+@pytest.mark.cuda
+def test_mesh_estimator_equals_meshless_on_card():
+    """``PoseEstimator(mesh=)`` on a one-rank NCCL mesh, 3 samples, against
+    the meshless estimator on the same weights: the same poses."""
+    import torch.distributed as dist
+
+    from densefusion_tpu_torch.data import PoseSample
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.models.init import (
+        init_posenet_, init_refiner_,
+    )
+    from densefusion_tpu_torch.serve import PoseEstimator
+
+    dev = _cuda()
+    batch = _dp_batch(np.random.default_rng(4), b=3)
+    samples = [PoseSample(*(x[i] for x in batch)) for i in range(3)]
+    gen = torch.Generator().manual_seed(0)
+    pose, ref = PoseNet(2), PoseRefineNet(2)
+    init_posenet_(pose, gen)
+    init_refiner_(ref, gen)
+    states = pose.state_dict(), ref.state_dict()
+    try:
+        got = {name: PoseEstimator(
+            PoseNet(2), PoseRefineNet(2), *states, num_points=32,
+            crop_size=32, device=dev, mesh=mesh).estimate_batch(samples)
+            for name, mesh in (("single", None), ("mesh", _one_rank_mesh()))}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for g, w in zip(got["mesh"], got["single"]):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)

@@ -361,3 +361,46 @@ def test_bench_data_cli_on_cpu(capsys, tiny_ycb_root, what):
         assert out["train_e2e_frames_per_s"] == pytest.approx(
             2 * out["train_e2e_steps_per_s"])
     assert json.loads(capsys.readouterr().out) == out
+
+
+def test_bench_scaling_on_two_cpu_ranks(monkeypatch):
+    """``bench_scaling`` on 1 and 2 spawned gloo ranks at a tiny width:
+    the JAX ``bench_scaling``'s keys, ``scaling_1dev_efficiency`` exactly
+    1, positive rates. A group that hangs fails after 180 s."""
+    monkeypatch.setattr(benchmark, "SCALING_TIMEOUT_S", 180.0)
+    out = benchmark.bench_scaling(per_device_batch=2, repeats=1,
+                                  n_devices=2, device="cpu", num_points=16,
+                                  mesh_points=16, crop_size=32, num_obj=2)
+    keys = {f"scaling_{n}dev_{k}" for n in (1, 2)
+            for k in ("fps", "efficiency")}
+    assert set(out) == keys | {"dtype", "device"}
+    assert out["device"] == "cpu" and out["dtype"] == "float32"
+    assert out["scaling_1dev_efficiency"] == 1.0
+    assert all(out[k] > 0 for k in keys)
+
+
+def test_what_all_runs_knn_inference_and_train(monkeypatch, capsys):
+    """``--what all``, the default as in the JAX CLI, runs the knn,
+    inference and train benchmarks (patched here: no full-width CPU run)
+    and prints their keys as one JSON object; no other benchmark runs."""
+    import json
+
+    calls = []
+
+    def fake(name):
+        def bench(**kwargs):
+            calls.append(name)
+            return {f"{name}_ran": True, "device": kwargs["device"]}
+        return bench
+
+    names = ("knn", "inference", "latency", "train_step", "refine_step",
+             "seg", "scaling", "loader", "train_e2e")
+    for name in names:
+        monkeypatch.setattr(benchmark, f"bench_{name}", fake(name))
+    out = benchmark.main(["--device", "cpu"])
+    assert calls == ["knn", "inference", "train_step"]
+    assert out == {"knn_ran": True, "inference_ran": True,
+                   "train_step_ran": True, "device": "cpu"}
+    assert json.loads(capsys.readouterr().out) == out
+    assert benchmark.main(["--what", "scaling", "--device", "cpu"]) == {
+        "scaling_ran": True, "device": "cpu"}

@@ -19,9 +19,6 @@ times out first.
 """
 
 import functools
-import multiprocessing as mp
-import queue as queue_mod
-import socket
 
 import numpy as np
 import pytest
@@ -46,31 +43,10 @@ def _spawn(case: str, inputs: dict, init) -> list:
     """Run ``case`` on WORLD spawned ranks, their group started from
     ``init`` (a coordinator URL or a launcher's environment); their results
     by rank."""
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    procs = [ctx.Process(target=torch_dist_worker.run,
-                         args=(r, WORLD, init, case, inputs, q))
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    results = {}
     try:
-        for _ in range(WORLD):   # drain before joining
-            rank, res, err = q.get(timeout=JOIN_S)
-            if err is not None:
-                pytest.fail(f"rank {rank} of {case} failed:\n{err}")
-            results[rank] = res
-    except queue_mod.Empty:
-        pytest.fail(f"{case}: no result within {JOIN_S} s from ranks "
-                    f"{sorted(set(range(WORLD)) - set(results))}")
-    finally:
-        for p in procs:
-            p.join(timeout=10)
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10)
-    assert not any(p.is_alive() for p in procs)
-    return [results[r] for r in range(WORLD)]
+        return torch_dist_worker.spawn(case, inputs, init, WORLD, JOIN_S)
+    except RuntimeError as e:
+        pytest.fail(str(e))
 
 
 def _hyp_problem(rng, b, n, m, sym):
@@ -118,11 +94,7 @@ def line_case():
     inputs = {"world": WORLD, "nn": _nn_problems(rng, LINE_NN),
               "hyp": _hyp_problem(rng, 3, 13, 11, [True, False, True]),
               "batch": batch}
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    env = {"WORLD_SIZE": str(WORLD), "MASTER_ADDR": "127.0.0.1",
-           "MASTER_PORT": str(port)}
+    env = torch_dist_worker.launcher_env(WORLD)
     return inputs, _spawn("line", inputs, env)
 
 
