@@ -160,6 +160,24 @@ fails. Phases, in order:
    cli.train --data_parallel`` one epoch on the 4f root (one
    ``checkpoint_current``, every rank's digest equal, resumed in one
    process and served); ``cli.benchmark --what scaling``;
+   4n. export (``densefusion_tpu_torch/export.py``): a seeded checkpoint
+   at the YCB width (fused decoder) exported at B=8, K=2 in float32 and
+   bf16 on the card, each graph holding kernel 6's registered op three
+   times; each artifact loaded in a child process that imports only
+   ``torch`` and ``densefusion_tpu_torch.export`` (no ``jax``, no port
+   ``models``) and run on a seeded batch: three launches of the route's
+   kernel per call and none of the other route's, the poses and
+   confidences within 1e-4 of ``PoseEstimator.from_checkpoint``'s, run in
+   a fresh process of its own too (whether they are bit-identical is
+   printed, and so is this process's ``from_checkpoint`` against the fresh
+   one: two processes on one card can differ); the artifact's frames/s
+   against the live pipeline's in turns;
+   the ``.pth`` round trip (``export_torch_checkpoint`` ->
+   ``import_torch_checkpoint``: parameters exact, served on the card as
+   the same weights under the reference's decoder); ``cli.benchmark
+   --what knn --trace_dir`` and ``cli.train --trace_dir`` (one epoch on
+   the 4h root) each write a trace, and whether it names the hand-written
+   kernels;
 5. the same B=8 batch on the card and on the CPU, with TF32 off, must agree,
    under each of the three decoders;
    5b. one phase-1 and one phase-2 loss and gradient at B=4, dropout off,
@@ -200,6 +218,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -239,6 +258,11 @@ SEG_BENCH, FAT_FRAMES = (4, 480, 640, 22), 2
 # [4m] data parallelism: steps per phase, serving samples (63: padded on
 # every rank count but 1, 3, 7, 9, 21 and 63), the ranks' time limit
 DP_STEPS, DP_SAMPLES, DP_JOIN_S = 2, 63, 600
+# [4n] export: the artifact's batch (the JAX export CLI's default)
+EXPORT_BATCH = 8
+# the hand-written kernels' __global__ names, as a profiler trace shows them
+KERNEL_SYMBOLS = ("nn_kernel", "adds_remap_kernel", "paired_dist",
+                  "min_partial", "phase_conv_kernel", "phase_conv_bf16_kernel")
 # the KNN benchmark's shape (densefusion_tpu_torch/cli/benchmark.py)
 KNN_QUERIES, KNN_REFS = 250_000, 500
 SEED = 0
@@ -3251,6 +3275,292 @@ def batch_samples(est, frames, n):
     return samples[:n]
 
 
+# [4n]'s child: loads each artifact with the port's export module alone,
+# runs it on the saved batch, reports its launches and what it imported
+EXPORT_CHILD = """
+import json, sys, time
+import numpy as np
+import torch
+from densefusion_tpu_torch import export
+arrays = np.load(sys.argv[1])
+inputs = [arrays[k] for k in ("img", "points", "choose", "obj")]
+report = {}
+for name, path in zip(("f32", "bf16"), sys.argv[2:4]):
+    t0 = time.perf_counter()
+    with open(path, "rb") as f:
+        fn = export.load_exported(f.read())
+    load_s = time.perf_counter() - t0
+    kernels = export.phase_conv.KERNELS.values()
+    first = []
+    for _ in range(2):
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn(*inputs)
+        torch.cuda.synchronize()
+        first.append(time.perf_counter() - t0)
+    report[name] = {"load_s": load_s, "first_call_s": first[0],
+                    "second_call_s": first[1],
+                    "launches": {k.name: k.launches for k in kernels}}
+    np.savez(sys.argv[4] + name + ".npz",
+             *(t.float().cpu().numpy() for t in out))
+from densefusion_tpu_torch.device import precision_policy
+report["policy"] = precision_policy()
+report["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "densefusion_tpu")
+    or m.startswith("densefusion_tpu_torch.models"))
+print(json.dumps(report))
+"""
+
+
+# [4n]'s reference: the live pipeline (PoseEstimator.from_checkpoint) on the
+# same batch, in a fresh process of its own, as the artifact's child is
+LIVE_CHILD = """
+import sys
+import numpy as np
+from densefusion_tpu_torch.serve import PoseEstimator
+arrays = np.load(sys.argv[1])
+inputs = [arrays[k] for k in ("img", "points", "choose", "obj")]
+for name in ("f32", "bf16"):
+    live = PoseEstimator.from_checkpoint(
+        sys.argv[2], num_obj=int(sys.argv[4]), num_points=inputs[1].shape[1],
+        crop_size=inputs[0].shape[1], bf16=name == "bf16").pipeline
+    np.savez(sys.argv[3] + name + ".npz",
+             *(t.float().cpu().numpy() for t in live(*inputs)))
+"""
+
+
+def _children(*runs: tuple) -> list[str]:
+    """Run each ``(code, *args)`` in a fresh interpreter with this checkout
+    on its path, all at once; return their standard outputs, raise with
+    the errors of one that failed."""
+    root = Path(__file__).resolve().parent
+    procs = [subprocess.Popen([sys.executable, "-c", *run], cwd=root,
+                              env={**os.environ, "PYTHONPATH": str(root)},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for run in runs]
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"[4n] a child process failed:\n"
+                                     f"{err[-4000:]}")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def _trace_kernels(trace_dir: str) -> tuple[int, list]:
+    """(events, the hand-written kernels named) of the one trace in
+    ``trace_dir``."""
+    import glob
+
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"[4n] trace files in {trace_dir}: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = " ".join({e.get("name", "") for e in events
+                      if e.get("cat") in ("kernel", "Kernel")})
+    return len(events), sorted(sym for sym in KERNEL_SYMBOLS
+                               if re.search(rf"\b{sym}\b", names))
+
+
+def export_path(states, samples, lm_root: str, out: str, card: str) -> dict:
+    """Phase 4n: export and the remaining tools on the card (see the
+    module docstring). Returns the readings; kernel 6's launches per
+    artifact call are read in the child."""
+    from densefusion_tpu_torch import compat, export
+    from densefusion_tpu_torch.cli import benchmark
+    from densefusion_tpu_torch.cli import train as train_cli
+    from densefusion_tpu_torch.data import collate
+    from densefusion_tpu_torch.eval.pipeline import pipeline_inputs
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.ops import phase_conv
+    from densefusion_tpu_torch.serve import PoseEstimator
+    from densefusion_tpu_torch.train import (
+        load_state_dicts, peek_config, save_checkpoint,
+    )
+    from densefusion_tpu_torch.train.state import (
+        Curriculum, create_train_state,
+    )
+    from densefusion_tpu_torch.utils.config import RunConfig
+
+    t_phase = time.perf_counter()
+    # a seeded checkpoint at the YCB width, fused decoder, trained refiner
+    ck = os.path.join(out, "checkpoint_best_refine")
+    state = create_train_state(PoseNet(NUM_OBJ), PoseRefineNet(NUM_OBJ),
+                               LR, SEED, device="cpu")
+    state.posenet.load_state_dict(states[0], strict=True)
+    state.refiner.load_state_dict(states[1], strict=True)
+    save_checkpoint(ck, state, Curriculum(refine_started=True,
+                                          decay_started=True,
+                                          refine_steps=20000),
+                    RunConfig.preset("ycb", num_points=NUM_POINTS,
+                                     crop_size=CROP,
+                                     refine_iters=REFINE_ITERS))
+    del state
+    b = collate(samples[:EXPORT_BATCH])
+    arrays = {"img": b.img, "points": b.points,
+              "choose": b.choose.astype(np.int64),
+              "obj": b.obj_idx.astype(np.int64)}
+    np.savez(os.path.join(out, "batch.npz"), **arrays)
+    inputs = [arrays[k] for k in ("img", "points", "choose", "obj")]
+    op = torch.ops.densefusion_tpu_torch.phase_conv3x3.default
+    res, programs = {}, {}
+    for name, bf16 in (("f32", False), ("bf16", True)):
+        t0 = time.perf_counter()
+        blob = export.export_inference(ck, batch=EXPORT_BATCH,
+                                       refine_iters=REFINE_ITERS, bf16=bf16)
+        export_s = time.perf_counter() - t0
+        path = os.path.join(out, f"posenet_b{EXPORT_BATCH}_{name}.pt2")
+        with open(path, "wb") as f:
+            f.write(blob)
+        # the saved program, loaded back here for its graph and, below, its
+        # time beside the live pipeline's
+        programs[name] = torch.export.load(path)
+        nodes = sum(1 for n in programs[name].graph.nodes if n.target == op)
+        if nodes != 3:
+            raise AssertionError(f"[4n] the {name} program holds {nodes} "
+                                 "phase_conv3x3 nodes, not 3")
+        res[name] = {"export_s": export_s, "mb": len(blob) / 1e6,
+                     "op_nodes": nodes, "path": path,
+                     "meta": export.read_meta(blob)}
+        log(f"[4n] exported {name} (B={EXPORT_BATCH}, K={REFINE_ITERS}) in "
+            f"{export_s:.2f} s: {len(blob) / 1e6:.1f} MB, {nodes} "
+            "phase_conv3x3 nodes")
+
+    # each artifact in a fresh process that imports only torch and the
+    # export module; the live pipeline in another fresh process, beside it
+    t0 = time.perf_counter()
+    batch = os.path.join(out, "batch.npz")
+    outs = _children(
+        (EXPORT_CHILD, batch, res["f32"]["path"], res["bf16"]["path"],
+         os.path.join(out, "out_")),
+        (LIVE_CHILD, batch, ck, os.path.join(out, "live_"), str(NUM_OBJ)))
+    child = json.loads(outs[0].strip().splitlines()[-1])
+    child_s = time.perf_counter() - t0
+    if child["modules"]:
+        raise AssertionError(f"[4n] the child imported {child['modules']}")
+    if any(child["policy"].values()):
+        raise AssertionError(f"[4n] TF32 on after load: {child['policy']}")
+    for name, route, other in (("f32", "phase_conv", "phase_conv_bf16"),
+                               ("bf16", "phase_conv_bf16", "phase_conv")):
+        launches = child[name]["launches"]
+        if launches != {route: 3, other: 0}:
+            raise AssertionError(f"[4n] the {name} artifact's call launched "
+                                 f"{launches}, not 3 of {route}")
+        got = list(np.load(os.path.join(out, f"out_{name}.npz")).values())
+        want = list(np.load(os.path.join(out, f"live_{name}.npz")).values())
+        diff = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        same = all(np.array_equal(g, w) for g, w in zip(got, want))
+        if not diff <= 1e-4 or not all(np.isfinite(g).all() for g in got):
+            raise AssertionError(f"[4n] the {name} artifact differs from "
+                                 f"from_checkpoint by {diff}")
+        # a reading: the same live pipeline in this process, against the
+        # fresh one
+        live = PoseEstimator.from_checkpoint(
+            ck, num_obj=NUM_OBJ, num_points=NUM_POINTS, crop_size=CROP,
+            bf16=name == "bf16").pipeline
+        here = [t.float().cpu().numpy() for t in live(*inputs)]
+        spread = max(float(np.abs(h - w).max()) for h, w in zip(here, want))
+        # frames/s, artifact and live pipeline in turns, inputs on the card
+        module = programs.pop(name).module()
+        dev_in = pipeline_inputs(*inputs, "cuda")
+
+        def fn():
+            with torch.no_grad():
+                return module(*dev_in)
+
+        runs = [cuda_ms(f, iters=20, warmup=3)
+                for f in (fn, lambda: live(*dev_in), lambda: live(*dev_in),
+                          fn)]
+        art_ms, live_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+        res[name].update({
+            **child[name], "max_abs_diff": diff, "bit_identical": same,
+            "live_this_process_vs_fresh": spread,
+            "artifact_ms": art_ms, "live_ms": live_ms,
+            "artifact_frames_per_s": EXPORT_BATCH * 1e3 / art_ms,
+            "live_frames_per_s": EXPORT_BATCH * 1e3 / live_ms})
+        log(f"[4n] {name} artifact in a fresh process (imports: torch, "
+            f"densefusion_tpu_torch.export; no jax, no models; policy "
+            f"{child['policy']}): load {child[name]['load_s']:.2f} s, first "
+            f"call {child[name]['first_call_s']:.3f} s, launches per call "
+            f"{launches}; against from_checkpoint in a fresh process: max "
+            f"abs diff {diff:.3g}, bit-identical {same} (from_checkpoint in "
+            f"this process against the fresh one, a reading: {spread:.3g}); "
+            f"artifact {art_ms:.3f} ms = {EXPORT_BATCH * 1e3 / art_ms:.1f} "
+            f"frames/s, live {live_ms:.3f} ms = "
+            f"{EXPORT_BATCH * 1e3 / live_ms:.1f} frames/s (in turns); card "
+            f"{card}")
+        del fn, module, live
+    res["child_s"] = child_s
+
+    # the .pth round trip: export -> import -> served on the card
+    t0 = time.perf_counter()
+    pths = [os.path.join(out, f) for f in ("pose.pth", "refine.pth")]
+    compat.export_torch_checkpoint(ck, *pths)
+    ck2 = os.path.join(out, "imported")
+    compat.import_torch_checkpoint(pths[0], ck2, num_obj=NUM_OBJ,
+                                   refine_pth=pths[1], dataset="ycb",
+                                   num_points=NUM_POINTS, crop_size=CROP)
+    bad = [k for a, bb in zip(load_state_dicts(ck), load_state_dicts(ck2))
+           for k in a if not torch.equal(a[k], bb[k])]
+    if bad:
+        raise AssertionError(f"[4n] .pth round trip changed {bad[:8]}")
+    phase_conv.phase_conv_kernel.launches = 0
+    served = PoseEstimator.from_checkpoint(
+        ck2, num_obj=NUM_OBJ, num_points=NUM_POINTS, crop_size=CROP
+    ).pipeline(*inputs)
+    ref = seeded_estimator(None, states,
+                           posenet_kw={"fused_decoder": False,
+                                       "align_corners": True})[0]
+    want = ref.pipeline(*inputs)
+    if not all(torch.equal(g, w) for g, w in zip(served, want)) \
+            or phase_conv.phase_conv_kernel.launches != 0:
+        raise AssertionError("[4n] the imported checkpoint does not serve "
+                             "its weights under the reference's decoder")
+    res["pth_s"] = time.perf_counter() - t0
+    log(f"[4n] .pth round trip (export_torch -> import_torch): parameters "
+        f"exact, decoder {peek_config(ck2).decoder!r}, served on the card equal "
+        f"to the same weights under the align-corners decoder; "
+        f"{res['pth_s']:.2f} s")
+
+    # traces: the KNN benchmark and one training epoch on the 4h root
+    traces = {}
+    t0 = time.perf_counter()
+    knn_dir = os.path.join(out, "trace_knn")
+    benchmark.main(["--what", "knn", "--trace_dir", knn_dir])
+    traces["knn"] = _trace_kernels(knn_dir) + (time.perf_counter() - t0,)
+    t0 = time.perf_counter()
+    train_dir = os.path.join(out, "trace_train")
+    train_cli.main([
+        "--dataset", "linemod", "--dataset_root", lm_root, "--objlist",
+        *(str(o) for o in LM_OBJECTS), "--nepoch", "1", "--repeat_epoch",
+        "1", "--batch_size", str(LM_BATCH), "--workers", "2",
+        "--worker_mode", "thread", "--out_dir", os.path.join(out, "lm"),
+        "--log_dir", os.path.join(out, "lm_logs"), "--trace_dir",
+        train_dir])
+    traces["train"] = _trace_kernels(train_dir) + (time.perf_counter() - t0,)
+    for name, what in (("knn", "cli.benchmark --what knn"),
+                       ("train", "cli.train, one LineMOD epoch")):
+        events, found, secs = traces[name]
+        log(f"[4n] --trace_dir on {what}: {events} events in {secs:.2f} s; "
+            f"hand-written kernels named in the trace: {found or 'none'}")
+    res["traces"] = {k: {"events": v[0], "kernels_named": v[1],
+                         "seconds": v[2]} for k, v in traces.items()}
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[4n] export path {res['seconds']:.1f} s")
+    for r in (res["f32"], res["bf16"]):
+        r.pop("path")
+    return res
+
+
 def cpu_agreement(est_gpu, est_cpu, samples) -> dict:
     """Phase 5: one B=8 batch through the card and the CPU. The raw
     hypotheses agree to atol 1e-4; the refined poses agree to atol 1e-4
@@ -3625,6 +3935,16 @@ def run() -> None:
     atexit.register(shutil.rmtree, dp_dir, True)
     dp = dp_path(data_root, dp_dir, card)
     path_launches.update(dp.pop("launches"))
+
+    # 4n. export: f32 and bf16 artifacts at B=8, each loaded and run in a
+    # fresh process whose launch counts start at 0 (read there, per call);
+    # the .pth round trip; --trace_dir in the benchmark and training CLIs
+    export_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    atexit.register(shutil.rmtree, export_dir, True)
+    exported = export_path(states, samples, os.path.join(lm_dir, "root"),
+                           export_dir, card)
+    path_launches["export_f32"] = exported["f32"]["launches"]
+    path_launches["export_bf16"] = exported["bf16"]["launches"]
 
     # 5. card vs CPU, TF32 off
     est_cpu = seeded_estimator(None, states, device="cpu")[0]
@@ -4042,6 +4362,7 @@ def run() -> None:
                "serving_cpu_agreement": agree,
                "bf16_serving": bf16_serve, "bf16_training": bf16_train,
                "bf16_cli": bf16_cli, "data_parallel": dp,
+               "export": exported,
                "train_cpu_agreement": train_agree, "card": card}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"kernels": kernels}))

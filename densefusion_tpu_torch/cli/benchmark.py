@@ -61,6 +61,10 @@ prints their keys together.
   per step, frames/s) and the argmax inference pass that writes
   ``segnet_results`` masks (ms per batch, frames/s); each step or batch
   ended by a sync; float32, TF32 off.
+
+``--trace_dir DIR`` wraps the benchmarked region in a ``torch.profiler``
+trace (``utils/profiling.py`` ``trace_context``) written into DIR, as the
+JAX CLI's ``--trace_dir`` wraps it in ``jax.profiler``'s.
 """
 
 from __future__ import annotations
@@ -568,35 +572,42 @@ def main(argv=None) -> dict:
     p.add_argument("--crop_size", type=int, default=192,
                    help="loader / train_e2e: crop size (smaller for a CPU "
                         "run)")
+    p.add_argument("--trace_dir", default=None,
+                   help="capture a torch.profiler trace (TensorBoard) of "
+                        "the benchmarked region")
     args = p.parse_args(argv)
+    from densefusion_tpu_torch.utils.profiling import trace_context
     data_kw = dict(workers=args.workers, batch=args.batch or 16,
                    dataset_root=args.dataset_root,
                    num_points=args.num_points, crop_size=args.crop_size,
                    device=args.device)
     results = {}
-    if args.what in ("all", "knn"):
-        results.update(bench_knn(device=args.device, num_query=args.queries))
-    if args.what in ("all", "inference"):
-        results.update(bench_inference(batch=args.batch or 16,
-                                       device=args.device))
-    if args.what == "latency":
-        results.update(bench_latency(device=args.device))
-    if args.what in ("all", "train"):
-        results.update(bench_train_step(batch=args.batch or 8,
-                                        device=args.device))
-    if args.what == "refine":
-        results.update(bench_refine_step(batch=args.batch or 8,
-                                         device=args.device))
-    if args.what == "seg":
-        results.update(bench_seg(batch=args.batch or 4, device=args.device))
-    if args.what == "scaling":
-        results.update(bench_scaling(device=args.device))
-    if args.what == "loader":
-        results.update(bench_loader(**data_kw))
-    if args.what == "train_e2e":
-        results.update(bench_train_e2e(steps=args.steps,
-                                       device_steps=args.device_steps,
-                                       **data_kw))
+    with trace_context(args.trace_dir):
+        if args.what in ("all", "knn"):
+            results.update(bench_knn(device=args.device,
+                                     num_query=args.queries))
+        if args.what in ("all", "inference"):
+            results.update(bench_inference(batch=args.batch or 16,
+                                           device=args.device))
+        if args.what == "latency":
+            results.update(bench_latency(device=args.device))
+        if args.what in ("all", "train"):
+            results.update(bench_train_step(batch=args.batch or 8,
+                                            device=args.device))
+        if args.what == "refine":
+            results.update(bench_refine_step(batch=args.batch or 8,
+                                             device=args.device))
+        if args.what == "seg":
+            results.update(bench_seg(batch=args.batch or 4,
+                                     device=args.device))
+        if args.what == "scaling":
+            results.update(bench_scaling(device=args.device))
+        if args.what == "loader":
+            results.update(bench_loader(**data_kw))
+        if args.what == "train_e2e":
+            results.update(bench_train_e2e(steps=args.steps,
+                                           device_steps=args.device_steps,
+                                           **data_kw))
     print(json.dumps(results, indent=2))
     return results
 

@@ -11,8 +11,8 @@ Runs on the card unless given ``--device cpu``. Checkpoints go to
 ``<out_dir>/<dataset>/checkpoint_{best_pose,best_refine,current}`` in the JAX
 package's format. ``--bf16`` trains with bf16 compute (float32 parameters,
 Adam state and checkpoints) and ``--remat_cnn`` recomputes the CNN in the
-backward pass. ``--trace_dir``, which the port does not run yet, raises
-``NotImplementedError`` naming its ROADMAP.md section.
+backward pass. ``--trace_dir`` writes a ``torch.profiler`` trace of the
+run (``utils/profiling.py`` ``trace_context``).
 
 ``--data_parallel`` runs one rank per process, started by a launcher that
 sets ``WORLD_SIZE`` / ``RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT`` (NCCL on
@@ -80,8 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recompute the CNN in backward (lower peak "
                         "activation memory)")
     p.add_argument("--trace_dir", default=None,
-                   help="capture a profiler trace of the run (not ported "
-                        "yet: ROADMAP.md §1 G)")
+                   help="capture a torch.profiler trace (TensorBoard) of "
+                        "the run")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     return p
@@ -91,11 +91,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     from densefusion_tpu_torch.train import Trainer
     from densefusion_tpu_torch.utils.config import RunConfig, check_ported
-
-    if args.trace_dir is not None:
-        raise NotImplementedError(
-            "--trace_dir is not ported yet (ROADMAP.md §1 G, "
-            "utils/profiling.py)")
+    from densefusion_tpu_torch.utils.profiling import trace_context
 
     overrides = {}
     if args.repeat_epoch is not None:
@@ -150,7 +146,8 @@ def main(argv=None):
     trainer = Trainer(cfg, device=args.device, shard_batch=shard_batch)
     try:
         trainer.setup(resume=args.resume or None)
-        trainer.run()
+        with trace_context(args.trace_dir):
+            trainer.run()
         if shard_batch is not None:
             # every rank's parameters, for the check that the ranks agree
             print(f"rank {shard_batch.sharding.index} of "

@@ -4,11 +4,21 @@ Converts the JAX package's parameter trees — nested dicts of numpy arrays
 ``{"params": {...}}``, as ``jax.tree.map(np.asarray, variables)`` gives them
 — into state_dicts under the reference's torch names
 (``cnn.model.module.feats.conv1.weight``, ``conv1_r.weight``, ...), which
-the port's modules load with ``load_state_dict(strict=True)``. A reference
-``.pth`` has the same names, so it loads the same way. The inverse
+the port's modules load with ``load_state_dict(strict=True)``. The inverse
 (``*_params_from_state_dict``) gives back the tree the JAX package's
 ``create_train_state`` makes, keys sorted at every level as ``jax.jit``
 returns them.
+
+A reference ``.pth`` (``torch.save(model.state_dict())``) uses the same
+names but does not load strictly as it is: a ``PoseNet`` file carries the
+PSPNet's dead aux classifier (``cnn.model.module.classifier.*``,
+``lib/pspnet.py:58-62``) and may put the CNN under ``cnn.model.`` or
+``cnn.`` instead; a modern-torch ``SegNet`` file carries
+``num_batches_tracked``. :func:`import_torch_checkpoint` and
+:func:`import_segnet_checkpoint` (``densefusion_tpu/compat.py:311-365,
+479-494``) rename, skip and check such a file into a checkpoint of the
+port, and :func:`export_torch_checkpoint` / :func:`export_segnet_checkpoint`
+write one back.
 
 Layout transforms (the inverse of the JAX package's importer):
 
@@ -38,6 +48,10 @@ import numpy as np
 import torch
 
 from densefusion_tpu_torch.models.resnet import Bottleneck, RESNET_SPECS
+
+# where the port's PoseNet keeps its CNN, as the reference saves it
+# (ModifiedResnet wraps PSPNet in DataParallel, lib/network.py:27-37)
+_PREFIX = "cnn.model.module."
 
 
 def _conv2d(w):
@@ -196,7 +210,7 @@ def _import(named: Mapping, mapping: dict) -> dict:
 
 
 def _posenet_map(variant: str = "resnet18",
-                 prefix: str = "cnn.model.module.") -> dict:
+                 prefix: str = _PREFIX) -> dict:
     return {**_pspnet_map(prefix, variant), **_fusion_map("feat."),
             **_posenet_head_map()}
 
@@ -206,7 +220,7 @@ def _refiner_map() -> dict:
 
 
 def posenet_state_dict_from_flax(params: Mapping, variant: str = "resnet18",
-                                 prefix: str = "cnn.model.module."
+                                 prefix: str = _PREFIX
                                  ) -> dict[str, torch.Tensor]:
     """JAX ``PoseNet`` params -> the reference ``PoseNet`` state_dict names."""
     return _export(params, _posenet_map(variant, prefix))
@@ -220,7 +234,7 @@ def refiner_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
 
 def posenet_params_from_state_dict(state_dict: Mapping,
                                    variant: str = "resnet18",
-                                   prefix: str = "cnn.model.module.") -> dict:
+                                   prefix: str = _PREFIX) -> dict:
     """The port's (or a reference) ``PoseNet`` state_dict -> the JAX
     ``PoseNet`` params ``{"params": ...}`` of numpy arrays."""
     return _import(state_dict, _posenet_map(variant, prefix))
@@ -405,3 +419,186 @@ def multisteps_from_optax(optimizer, module, kind: str, accum,
         a.copy_(acc[name])
     accum.mini_step = int(np.asarray(opt_state["mini_step"]))
     accum.gradient_step = int(np.asarray(opt_state["gradient_step"]))
+
+
+# ---------------------------------------------------------------------------
+# Reference .pth files (densefusion_tpu/compat.py:101-108,202-207,311-365,
+# 366-408,479-554)
+# ---------------------------------------------------------------------------
+
+def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A ``.pth`` state_dict, on the CPU. Read with ``weights_only=True``
+    only: a file that needs more than tensors and containers is refused,
+    since unpickling anything else can run its code (the JAX package falls
+    back to a full unpickle)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.detach() for k, v in sd.items()}
+
+
+def _detect_cnn_prefix(sd: Mapping) -> str:
+    for p in (_PREFIX, "cnn.model.", "cnn."):
+        if any(k.startswith(p + "feats.") for k in sd):
+            return p
+    raise ValueError("state_dict has no recognizable PSPNet keys "
+                     "(expected cnn.model.module.feats.*)")
+
+
+def _from_reference(sd: Mapping, module, ignore_prefixes: tuple = ()
+                    ) -> dict[str, torch.Tensor]:
+    """``sd`` checked against ``module``'s state_dict: every key the module
+    has must be there with its shape, and every other key must lie under
+    ``ignore_prefixes``. Returns the module's keys as float32 CPU tensors,
+    ready for ``load_state_dict(strict=True)``."""
+    out = {}
+    for key, want in module.state_dict().items():
+        if key not in sd:
+            raise KeyError(f"torch state_dict missing {key}")
+        value = torch.as_tensor(sd[key]).detach().to("cpu", torch.float32)
+        if value.shape != want.shape:
+            raise ValueError(f"shape mismatch for {key}: torch gives "
+                             f"{tuple(value.shape)}, the port expects "
+                             f"{tuple(want.shape)}")
+        out[key] = value.contiguous()
+    leftovers = [k for k in sd if k not in out
+                 and not k.startswith(tuple(ignore_prefixes))]
+    if leftovers:
+        raise ValueError(f"unconsumed torch keys (first 10): {leftovers[:10]}")
+    return out
+
+
+def posenet_state_dict_from_torch(sd: Mapping, num_obj: int,
+                                  variant: str = "resnet18"
+                                  ) -> dict[str, torch.Tensor]:
+    """A reference ``PoseNet.state_dict()`` (``lib/network.py:70-132``),
+    its CNN under any of the three prefixes -> the port's ``PoseNet``
+    state_dict; the aux classifier is skipped."""
+    from densefusion_tpu_torch.models import PoseNet
+
+    prefix = _detect_cnn_prefix(sd)
+    renamed = {_PREFIX + k[len(prefix):] if k.startswith(prefix) else k: v
+               for k, v in sd.items()}
+    return _from_reference(renamed, PoseNet(num_obj, cnn_variant=variant),
+                           ignore_prefixes=(_PREFIX + "classifier.",))
+
+
+def refiner_state_dict_from_torch(sd: Mapping, num_obj: int
+                                  ) -> dict[str, torch.Tensor]:
+    """A reference ``PoseRefineNet.state_dict()`` (``lib/network.py:
+    170-206``), checked against the port's ``PoseRefineNet``."""
+    from densefusion_tpu_torch.models import PoseRefineNet
+
+    return _from_reference(sd, PoseRefineNet(num_obj))
+
+
+def import_torch_checkpoint(pose_pth: str, out_path: str, num_obj: int,
+                            refine_pth: str | None = None,
+                            variant: str = "resnet18",
+                            dataset: str = "ycb",
+                            num_points: int = 1000,
+                            crop_size: int = 192) -> None:
+    """Convert reference ``.pth`` checkpoint(s) into a checkpoint directory
+    of the port (the JAX package's format): the config at
+    ``decoder="torch"`` (the reference's align-corners decoder,
+    ``lib/pspnet.py:31``), a fresh optimizer, and the curriculum
+    fast-forwarded when a refiner is given (``refine_started``,
+    ``decay_started``, ``refine_steps=1``: the imported refiner is trained),
+    mirroring the reference's resume (``tools/train.py:83-97``). The state is
+    built on the CPU: nothing is computed."""
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.train.checkpoint import save_checkpoint
+    from densefusion_tpu_torch.train.state import (
+        Curriculum, create_train_state,
+    )
+    from densefusion_tpu_torch.utils.config import RunConfig
+
+    cfg = RunConfig.preset(dataset, num_points=num_points,
+                           crop_size=crop_size, decoder="torch")
+    posenet = PoseNet(num_obj, cnn_variant=variant, **cfg.decoder_flags())
+    refiner = PoseRefineNet(num_obj)
+    state = create_train_state(posenet, refiner, cfg.lr, seed=0,
+                               device="cpu")
+    posenet.load_state_dict(posenet_state_dict_from_torch(
+        load_torch_state_dict(pose_pth), num_obj, variant), strict=True)
+    cur = Curriculum()
+    if refine_pth is not None:
+        refiner.load_state_dict(refiner_state_dict_from_torch(
+            load_torch_state_dict(refine_pth), num_obj), strict=True)
+        cur.refine_started = True
+        cur.decay_started = True
+        # the reference's published refiner is trained: mark it so the
+        # consumers' untrained-refiner guard (clamp_refine_iters) keeps
+        # refinement on
+        cur.refine_steps = 1
+    save_checkpoint(out_path, state, cur, cfg)
+
+
+def export_torch_checkpoint(ckpt_path: str, pose_out: str,
+                            refine_out: str | None = None,
+                            variant: str = "resnet18") -> dict:
+    """A checkpoint directory (either package's) -> reference ``.pth``
+    file(s), loadable by the reference's ``PoseNet`` / ``PoseRefineNet``
+    with ``strict=False`` (the aux classifier is not written). Shapes are
+    checked against models built from the checkpoint's own
+    ``config.json``, which is returned as a dict."""
+    import json
+
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+    from densefusion_tpu_torch.train import msgpack
+
+    with open(f"{ckpt_path}/config.json") as f:
+        cfg = json.load(f)
+    with open(f"{ckpt_path}/state.msgpack", "rb") as f:
+        raw = msgpack.unpack(f.read())
+    pose = posenet_state_dict_from_flax(raw["params_pose"], variant)
+    PoseNet(cfg["num_objects"], cnn_variant=variant).load_state_dict(
+        pose, strict=True)
+    torch.save(pose, pose_out)
+    if refine_out is not None:
+        refine = refiner_state_dict_from_flax(raw["params_refine"])
+        PoseRefineNet(cfg["num_objects"]).load_state_dict(refine,
+                                                          strict=True)
+        torch.save(refine, refine_out)
+    return cfg
+
+
+def segnet_state_dict_from_torch(sd: Mapping, num_classes: int = 22
+                                 ) -> dict[str, torch.Tensor]:
+    """A reference ``SegNet.state_dict()`` (``vanilla_segmentation/
+    segnet.py:6-121``) -> the port's ``SegNet`` state_dict; its
+    ``num_batches_tracked`` entries (a modern-torch save has them, the
+    reference's torch 0.4.1 none) are dropped."""
+    from densefusion_tpu_torch.models import SegNet
+
+    return _from_reference(
+        {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")},
+        SegNet(num_classes=num_classes))
+
+
+def import_segnet_checkpoint(segnet_pth: str, out_msgpack: str,
+                             num_classes: int = 22) -> None:
+    """A reference ``.pth`` SegNet (``vanilla_segmentation/train.py:80,
+    103-106``) -> a ``segnet_best.msgpack`` that ``cli.segment`` of either
+    package reads."""
+    import os
+
+    from densefusion_tpu_torch.models import SegNet
+    from densefusion_tpu_torch.train.seg import save_segnet
+
+    net = SegNet(num_classes=num_classes)
+    net.load_state_dict(segnet_state_dict_from_torch(
+        load_torch_state_dict(segnet_pth), num_classes), strict=True)
+    os.makedirs(os.path.dirname(out_msgpack) or ".", exist_ok=True)
+    save_segnet(out_msgpack, net)
+
+
+def export_segnet_checkpoint(msgpack_path: str, out_pth: str,
+                             num_classes: int = 22) -> None:
+    """A ``segnet_best.msgpack`` -> a reference ``torch.save(state_dict())``
+    file that ``vanilla_segmentation/segnet.py`` loads (no
+    ``num_batches_tracked``)."""
+    from densefusion_tpu_torch.models import SegNet
+    from densefusion_tpu_torch.train.seg import load_segnet
+
+    net = load_segnet(msgpack_path, SegNet(num_classes=num_classes))
+    torch.save({k: v.detach().clone() for k, v in net.state_dict().items()},
+               out_pth)

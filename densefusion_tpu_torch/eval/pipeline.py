@@ -46,18 +46,20 @@ class InferencePipeline:
     def __call__(self, img, points, choose, obj):
         """img (B, H, W, 3), points (B, N, 3), choose (B, N), obj (B,):
         numpy arrays or tensors, moved to the pipeline's device."""
-        dev = self.device
-        img = torch.as_tensor(img, dtype=torch.float32, device=dev)
-        points = torch.as_tensor(points, dtype=torch.float32, device=dev)
-        choose = torch.as_tensor(choose, device=dev).long()
-        obj = torch.as_tensor(obj, device=dev).long()
+        return self._infer(*pipeline_inputs(img, points, choose, obj,
+                                            self.device))
 
+    def _infer(self, img, points, choose, obj):
+        """The pure program on tensors already on the pipeline's device (the
+        counterpart of ``densefusion_tpu/eval/pipeline.py:47-83``):
+        ``densefusion_tpu_torch.export`` traces it with the K iterations
+        unrolled."""
         out = self.posenet(img, points, choose, obj)
         q_all = quat_normalize(out["pred_r"])                # (B, N, 4)
         t_all = points + out["pred_t"]                       # (B, N, 3)
         conf = out["pred_c"]                                 # (B, N)
         best = conf.argmax(dim=1)
-        rows = torch.arange(conf.shape[0], device=dev)
+        rows = torch.arange(conf.shape[0], device=conf.device)
         q0, t0, best_conf = q_all[rows, best], t_all[rows, best], \
             conf[rows, best]
 
@@ -73,3 +75,13 @@ class InferencePipeline:
         if self.return_unrefined:
             return q0, t0, q, t, best_conf
         return q, t, best_conf
+
+
+def pipeline_inputs(img, points, choose, obj, device) -> tuple:
+    """The pipeline's four inputs (numpy arrays or tensors) as the tensors
+    its program takes, on ``device``: img and points float32, choose and
+    obj int64."""
+    return (torch.as_tensor(img, dtype=torch.float32, device=device),
+            torch.as_tensor(points, dtype=torch.float32, device=device),
+            torch.as_tensor(choose, device=device).long(),
+            torch.as_tensor(obj, device=device).long())

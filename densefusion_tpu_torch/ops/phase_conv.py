@@ -14,10 +14,17 @@ Three routes compute the same function:
 - the kernel's function in plain PyTorch (:func:`conv3x3_valid_plain`, nine
   float32 matmuls), which the CPU tests use and ``chip_smoke.py`` holds the
   kernel to;
-- the kernel, through an autograd Function whose forward launches it on
-  CUDA tensors (the plain version on CPU tensors) and whose backward is the
-  library convolution's, as the JAX package's backward is XLA's
-  (``_conv3x3_bwd``). A CUDA tensor launches the kernel or raises.
+- the kernel, through the registered op
+  ``torch.ops.densefusion_tpu_torch.phase_conv3x3`` (:func:`phase_conv3x3`):
+  its CUDA implementation launches the kernel, its CPU implementation is
+  the plain version, its fake implementation gives the output's shape,
+  type and layout to ``torch.export`` and ``torch.compile``, and its
+  backward is the library convolution's, as the JAX package's backward is
+  XLA's (``_conv3x3_bwd``). A CUDA tensor launches the kernel or raises.
+  Being an op, the kernel stays one node of an exported program
+  (``densefusion_tpu_torch/export.py``), which a ``ctypes`` call inside an
+  autograd Function could not: ``torch.export`` traces with fake tensors,
+  which have no ``data_ptr()``.
 
 ``"auto"`` is :func:`auto_backend` of the input's device: the kernel on
 CUDA, the library convolution on the CPU. Measured, as the JAX package
@@ -123,10 +130,11 @@ class PhaseConvKernel(build.Kernel):
         self.dtype = dtype
         self.layout = layout
 
-    def __call__(self, xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
-        """xp (B, Cin, h+2, w+2) in this kernel's layout and pk (3, 3, Cin,
-        Cout) contiguous, CUDA tensors of this kernel's type on one device
-        -> (B, Cout, h, w) of that type, contiguous."""
+    def check(self, xp: torch.Tensor, pk: torch.Tensor) -> torch.device:
+        """Raise unless xp (B, Cin, h+2, w+2) in this kernel's layout and pk
+        (3, 3, Cin, Cout) contiguous are tensors of this kernel's type on
+        one CUDA device, within the kernel's limits; return that device.
+        Reads no data, so fake tensors pass it too."""
         for name, t, fmt in (("xp", xp, self.layout),
                              ("pk", pk, torch.contiguous_format)):
             if t.dtype != self.dtype or t.dim() != 4 \
@@ -151,7 +159,14 @@ class PhaseConvKernel(build.Kernel):
                 and bsz * hp * wp >= 2 ** 31 - 2 ** 10:
             raise ValueError(f"{self.name} kernel: need B*(h+2)*(w+2) < "
                              f"2^31 - 2^10, got {tuple(xp.shape)}")
-        dev = build.cuda_device(self.name, xp, pk)
+        return build.cuda_device(self.name, xp, pk)
+
+    def __call__(self, xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
+        """Launch on operands that pass :meth:`check` -> (B, Cout, h, w) of
+        this kernel's type, contiguous."""
+        dev = self.check(xp, pk)
+        bsz, cin, hp, wp = xp.shape
+        cout = pk.shape[-1]
         out = torch.empty((bsz, cout, hp - 2, wp - 2), dtype=self.dtype,
                           device=dev)
         self.launch(dev, xp.data_ptr(), pk.data_ptr(), out.data_ptr(), bsz,
@@ -166,36 +181,78 @@ phase_conv_bf16_kernel = PhaseConvKernel(torch.bfloat16, "phase_conv_bf16",
 KERNELS = {k.dtype: k for k in (phase_conv_kernel, phase_conv_bf16_kernel)}
 
 
-class KernelConv3x3(torch.autograd.Function):
-    """The kernel route: forward is the kernel of the operands' type
-    (:data:`KERNELS`) on CUDA tensors and its plain version on CPU tensors;
-    backward is the library convolution's input and weight gradients on the
-    same tensors, in their type, so they equal the library route's
-    (``_conv3x3_bwd``, ``densefusion_tpu/ops/phase_conv.py:156``)."""
+def _check_operands(xp: torch.Tensor, pk: torch.Tensor) -> None:
+    if xp.dtype != pk.dtype or xp.dtype not in KERNELS:
+        raise ValueError(f"phase_conv kernel route: xp and pk must both "
+                         f"be float32 or both bfloat16, got {xp.dtype} "
+                         f"and {pk.dtype}")
+    if xp.dim() != 4 or pk.dim() != 4:
+        raise ValueError(f"phase_conv kernel route: need xp (B, Cin, h+2, "
+                         f"w+2) and pk (3, 3, Cin, Cout), got "
+                         f"{tuple(xp.shape)} and {tuple(pk.shape)}")
 
-    @staticmethod
-    def forward(ctx, xp, pk):
-        if xp.dtype != pk.dtype or xp.dtype not in KERNELS:
-            raise ValueError(f"phase_conv kernel route: xp and pk must both "
-                             f"be float32 or both bfloat16, got {xp.dtype} "
-                             f"and {pk.dtype}")
-        ctx.save_for_backward(xp, pk)
-        if xp.device.type == "cpu":
-            return conv3x3_valid_plain_nchw(xp, pk)
-        kernel = KERNELS[xp.dtype]
-        if kernel.layout == torch.contiguous_format:
-            xp = xp.contiguous()
-        # else the map stays as it came: the wrapper raises on another layout
-        return kernel(xp, pk.contiguous())
 
-    @staticmethod
-    def backward(ctx, g):
-        xp, pk = ctx.saved_tensors
-        gx, gw, _ = torch.ops.aten.convolution_backward(
-            g, xp, pk.permute(3, 2, 0, 1), None, [1, 1], [0, 0], [1, 1],
-            False, [0, 0], 1,
-            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
-        return gx, (None if gw is None else gw.permute(2, 3, 1, 0))
+def _kernel_operands(xp: torch.Tensor, pk: torch.Tensor):
+    """The kernel of the operands' type (:data:`KERNELS`) and the operands
+    as it takes them: a float32 map made contiguous; a bf16 map left as it
+    came (its kernel raises on any layout but channels-last)."""
+    kernel = KERNELS[xp.dtype]
+    if kernel.layout == torch.contiguous_format:
+        xp = xp.contiguous()
+    return kernel, xp, pk.contiguous()
+
+
+@torch.library.custom_op("densefusion_tpu_torch::phase_conv3x3",
+                         mutates_args=(), device_types="cpu")
+def phase_conv3x3(xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
+    """The kernel route as a registered op: xp (B, Cin, h+2, w+2), pk (3, 3,
+    Cin, Cout), both float32 or both bfloat16 -> (B, Cout, h, w),
+    contiguous. On CPU tensors (this implementation) the plain version; on
+    CUDA tensors the kernel of the operands' type (:data:`KERNELS`), whose
+    wrapper counts the launch; backward is the library convolution's input
+    and weight gradients on the same tensors, in their type, so they equal
+    the library route's (``_conv3x3_bwd``,
+    ``densefusion_tpu/ops/phase_conv.py:156``)."""
+    _check_operands(xp, pk)
+    return conv3x3_valid_plain_nchw(xp, pk).contiguous()
+
+
+@phase_conv3x3.register_kernel("cuda")
+def _phase_conv3x3_cuda(xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
+    _check_operands(xp, pk)
+    kernel, xp, pk = _kernel_operands(xp, pk)
+    return kernel(xp, pk)
+
+
+@phase_conv3x3.register_fake
+def _phase_conv3x3_fake(xp: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
+    """What the CUDA and CPU implementations give: (B, Cout, h, w) in the
+    operands' type, contiguous. On CUDA it raises where the kernel's
+    wrapper would (a bf16 map must come channels-last), so an export fails
+    at trace time, not at the first call of its artifact."""
+    _check_operands(xp, pk)
+    if xp.device.type == "cuda":
+        kernel, xp_k, pk_k = _kernel_operands(xp, pk)
+        kernel.check(xp_k, pk_k)
+    b, _, hp, wp = xp.shape
+    return xp.new_empty((b, pk.shape[-1], hp - 2, wp - 2))
+
+
+def _phase_conv3x3_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs)
+
+
+def _phase_conv3x3_backward(ctx, g):
+    xp, pk = ctx.saved_tensors
+    gx, gw, _ = torch.ops.aten.convolution_backward(
+        g, xp, pk.permute(3, 2, 0, 1), None, [1, 1], [0, 0], [1, 1],
+        False, [0, 0], 1,
+        [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+    return gx, (None if gw is None else gw.permute(2, 3, 1, 0))
+
+
+phase_conv3x3.register_autograd(_phase_conv3x3_backward,
+                                setup_context=_phase_conv3x3_setup)
 
 
 def auto_backend(device: torch.device) -> str:
@@ -229,7 +286,7 @@ def conv3x3_valid_nchw(xp: torch.Tensor, pk: torch.Tensor,
     if backend == "auto":
         backend = auto_backend(xp.device)
     if backend == "kernel":
-        return KernelConv3x3.apply(xp, pk)
+        return phase_conv3x3(xp, pk)
     if backend == "library":
         return _library_nchw(xp, pk)
     raise ValueError(f"unknown conv backend {backend!r}; one of {BACKENDS}")
@@ -248,7 +305,7 @@ def conv3x3_valid(xp: torch.Tensor, pk: torch.Tensor,
     ==========  =========  ===============================================
     "auto"      "auto"     :func:`auto_backend` of the input's device
     "library"   "xla"      the library convolution
-    "kernel"    "pallas"   :class:`KernelConv3x3`: ``csrc/phase_conv.cu`` on
+    "kernel"    "pallas"   :func:`phase_conv3x3`: ``csrc/phase_conv.cu`` on
                            CUDA tensors, its plain version on CPU tensors;
                            the library's backward
     ==========  =========  ===============================================

@@ -117,7 +117,7 @@ def test_kernel6_bf16_plain_matches_jax(shape):
 
 
 def test_kernel6_bf16_route_gradients_equal_library():
-    """``KernelConv3x3`` in bf16: its backward is the library
+    """The kernel route in bf16: its backward is the library
     convolution's, in bf16, so both input and weight gradients equal the
     library route's bit for bit."""
     rng = np.random.default_rng(1)

@@ -1,9 +1,9 @@
 """The port's CLIs against the JAX package's, on the CPU:
 
 * ``cli.train``'s parser has the JAX parser's options and defaults (plus
-  ``--device``); the option the port lacks raises ``NotImplementedError``
-  naming its ROADMAP.md section, ``--bf16`` / ``--remat_cnn`` train, and
-  ``--data_parallel`` trains on 2 spawned gloo ranks;
+  ``--device``); ``--bf16`` / ``--remat_cnn`` train, and
+  ``--data_parallel`` trains on 2 spawned gloo ranks (``--trace_dir``:
+  ``tests/test_torch_profiling.py``);
   one epoch writes a checkpoint that the JAX package's
   ``load_checkpoint(restore_opt=True)`` restores into the structures its
   own ``PoseNet`` / ``PoseRefineNet`` / Adam have;
@@ -100,14 +100,6 @@ def test_parsers_match_jax(name):
     want = _parser_spec(jax_cli.build_parser())
     assert got.pop("device")[1] is None
     assert got == want
-
-
-@pytest.mark.parametrize("flags,section", [
-    pytest.param(["--trace_dir", "x"], "§1 G", id="flags1-§1 G")])
-def test_unported_options_raise(root, tmp_path, flags, section):
-    with pytest.raises(NotImplementedError, match=section):
-        train.main(["--dataset_root", root, "--out_dir", str(tmp_path),
-                    "--device", "cpu", *flags])
 
 
 def test_data_parallel_runs(root, tmp_path):

@@ -426,3 +426,40 @@ def test_mesh_estimator_equals_meshless_on_card():
             dist.destroy_process_group()
     for g, w in zip(got["mesh"], got["single"]):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_registered_op_launches_the_kernel_and_exports(dtype):
+    """On CUDA tensors the registered op is the wrapper of the operands'
+    type (one launch, the wrapper's output bit for bit), and a decoder
+    stage exported on the card holds it as one node whose call launches
+    the kernel once."""
+    from densefusion_tpu_torch.models import layers
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, 32, 12, 10), device=dev, generator=gen).to(dtype)
+    w = (0.1 * torch.randn((16, 32, 3, 3), device=dev, generator=gen))
+    bias = torch.randn((16,), device=dev, generator=gen)
+    xp = phase_conv.replicate_pad(x, "kernel")
+    pk = layers.phase_conv_weight(w.to(dtype))
+    kernel = phase_conv.KERNELS[dtype]
+    before = kernel.launches
+    got = torch.ops.densefusion_tpu_torch.phase_conv3x3(xp, pk)
+    assert kernel.launches == before + 1
+    assert torch.equal(got, kernel(xp, pk.contiguous()))
+
+    class Stage(torch.nn.Module):
+        def forward(self, x):
+            return layers.phase_upsample_conv3x3(x, w, bias, border="zero",
+                                                 conv_backend="kernel")
+
+    program = torch.export.export(Stage(), (x,))
+    op = torch.ops.densefusion_tpu_torch.phase_conv3x3.default
+    assert sum(n.target == op for n in program.graph.nodes) == 1
+    before = kernel.launches
+    out = program.module()(x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(out, Stage()(x))

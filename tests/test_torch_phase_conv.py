@@ -4,7 +4,7 @@ phase-conv decoder layers that run it.
 The same numpy-seeded inputs go through the JAX package (its Pallas kernel
 in interpret mode, as ``tests/test_phase_conv.py`` runs it, and its XLA
 convolution) and the port's three routes: the plain version, the kernel
-route (on the CPU its autograd Function runs the plain version) and the
+route (on the CPU its registered op runs the plain version) and the
 library convolution. On the card the kernel itself is held to the plain
 version (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
