@@ -10,7 +10,8 @@ fails. Phases, in order:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``densefusion_tpu_torch/csrc``, one ``nvcc`` per
-   source, all started together;
+   source, all started together; then load the host data-plane library
+   (``csrc/dfnative.cpp``, built with ``g++`` at this first use);
 3. each kernel against its plain PyTorch version on the card: the remap at
    the scoring shape, at a ragged shape with a gated row, on exact ties
    (duplicated refs, and refs at swapped x and y at the scoring shape and
@@ -75,6 +76,16 @@ fails. Phases, in order:
    and min kernels against their plain versions on the last batch's
    model and target points, gated by its symmetric rows, at the PoseNet's
    own hypotheses;
+   4o. the host data-plane library (``densefusion_tpu_torch/native.py``,
+   the readers' default path, which [4f] and every later reader ran
+   through): a fresh ``g++`` build into a temporary directory, timed;
+   every entry point against its numpy plain version on 12 frames of the
+   4f root (PNG decode, the label scans and occluders, the crop-window
+   mask, compositing and the pool's noise exact; back-projection rtol
+   1e-5; the normalize + resize atol 1e-4; the jitter atol 0.35); the
+   root's test-mode samples (its real frames without augmentation)
+   through the library against the numpy path, float fields within 5e-5,
+   the rest exact;
    4g. the training CLI (``cli.train.main``) at the YCB width on the 4f
    root (21 objects, N=1000, 192 px, mesh 500 then 2600, K=2, B=16, 4
    steps per epoch): two epochs with the decay and refine margins above
@@ -197,7 +208,8 @@ fails. Phases, in order:
    the data plane on the 4f root: the loader's cold, warm (threads) and
    ring (fork workers) samples/s at B=32, and loader-fed phase-1 steps/s
    beside the device-only rate and the input-bound fraction
-   (``cli/benchmark.py`` ``bench_loader`` / ``bench_train_e2e``); kernel 6
+   (``cli/benchmark.py`` ``bench_loader`` / ``bench_train_e2e``), with
+   the host library on and off in turns (on, off, off, on); kernel 6
    and ``F.conv2d`` also at the training batch (B=32), the training CLI's
    (B=16), eval_ycb's largest frame bucket (B=8), one crop (B=1) and the
    three shapes the native-crop evaluation of [4i] launched most; the
@@ -1203,6 +1215,9 @@ def data_path(add_dist, phase_conv, root: str) -> dict:
         create_train_state, make_pose_train_step,
     )
 
+    from densefusion_tpu_torch import native
+    if not native.fused_scan_supported():
+        raise AssertionError("[4f] the readers' host library is off")
     t0 = time.perf_counter()
     generate_ycb_style_dataset(root, n_classes=NUM_OBJ, n_real=DATA_FRAMES,
                                n_syn=DATA_FRAMES, n_test=2, seed=SEED)
@@ -1341,6 +1356,215 @@ def data_path(add_dist, phase_conv, root: str) -> dict:
         proc.close()
     return {"launches": totals, "losses": losses, "sym_rows": sym_rows,
             "max_err": max_err, "generate_s": gen_s}
+
+
+@contextlib.contextmanager
+def host_library(on: bool):
+    """The readers' host library on (as built) or off: ``native._load``
+    finds none, so every call site takes its numpy plain version (fork
+    workers started inside inherit the switch)."""
+    from densefusion_tpu_torch import native
+
+    real = native._load
+    if not on:
+        native._load = lambda: None
+    try:
+        yield
+    finally:
+        native._load = real
+
+
+def host_plane(root: str) -> dict:
+    """Phase 4o: the host data-plane library (``csrc/dfnative.cpp``), the
+    readers' default path. A fresh ``g++`` build into a temporary
+    directory, timed (the cost of a first use in a fresh checkout); every
+    entry point against its numpy plain version on the 4f root's frames
+    (back-projection rtol 1e-5, the normalize + resize atol 1e-4, the
+    jitter atol 0.35, PNG decode, the label scans, compositing and the
+    pool's noise exact); then the root's test-mode samples through the
+    library against the numpy path, every float field within 5e-5 and the
+    rest exact. Returns the build seconds and each check's worst error."""
+    import ctypes
+    from PIL import Image
+    from densefusion_tpu_torch import native
+    from densefusion_tpu_torch.data import YCBDataset
+    from densefusion_tpu_torch.data.augment import (
+        _noise_pool, apply_color_jitter, jitter_params, resize_bilinear_np,
+    )
+    from densefusion_tpu_torch.data.common import pinhole_point_fn_np
+    from densefusion_tpu_torch.data.schema import (
+        IMAGENET_MEAN_255, IMAGENET_STD_255, normalize_image,
+    )
+    from densefusion_tpu_torch.geometry.bbox import (
+        remap_choose_to_resized, snap_bbox,
+    )
+    from densefusion_tpu_torch.ops import build
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as tmp:
+        rep = build.build_host(build=Path(tmp))
+        version = ctypes.CDLL(str(build.host_library_path(
+            build=Path(tmp)))).df_version()
+    if version != native.VERSION:
+        raise AssertionError(f"[4o] fresh build reports version {version}")
+    lib_path = Path(native._load()._name)
+    if lib_path.parent != build.BUILD or not lib_path.name.startswith(
+            "libdfnative-"):
+        raise AssertionError(f"[4o] the readers load {lib_path}")
+    log(f"[4o] host library: g++ build {rep['seconds']:.2f} s (fresh, into "
+        f"a temporary directory); the readers use {lib_path.name}")
+
+    worst: dict[str, float] = {}
+
+    def check(name, got, want, atol=0.0, rtol=0.0):
+        got, want = np.asarray(got), np.asarray(want)
+        if got.shape != want.shape:
+            raise AssertionError(f"[4o] {name}: shape {got.shape}, want "
+                                 f"{want.shape}")
+        if atol == rtol == 0.0:
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                raise AssertionError(f"[4o] {name} differs from its plain "
+                                     "version")
+            err = 0.0
+        else:
+            diff = np.abs(got.astype(np.float64) - want)
+            if not (diff <= atol + rtol * np.abs(want)).all():
+                raise AssertionError(f"[4o] {name}: max abs err "
+                                     f"{float(diff.max())} over atol {atol} "
+                                     f"rtol {rtol}")
+            err = float(diff.max()) if diff.size else 0.0
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    def png(path):
+        with Image.open(path) as im:
+            return np.array(im)
+
+    ds = YCBDataset(root, "train", num_points=NUM_POINTS, crop_size=CROP)
+    rng = np.random.default_rng(SEED + 11)
+    pool = _noise_pool()
+    frames = ds.real[:6] + ds.syn[:6]
+    for k, fr in enumerate(frames):
+        c_path, d_path, l_path, m_path = ds._frame_paths(fr)
+        for p in (c_path, d_path, l_path):
+            check("decode_png", native.decode_png_file(p), png(p))
+        rgb, depth, label = (png(c_path)[..., :3], png(d_path),
+                             png(l_path))
+        cam, cam_scale = ds._intrinsics(fr), ds._load_meta(m_path)[2]
+        valid = depth != 0
+        ids = [int(i) for i in np.unique(label) if i != 0]
+
+        counts, bboxes = native.label_hist_bbox(label, depth)
+        want_counts = np.bincount(label[valid], minlength=256)
+        want_counts[0] = 0      # the scan skips the background
+        check("label_hist_bbox counts", counts, want_counts)
+        check("label_depth_hist", native.label_depth_hist(label, depth)[1:],
+              want_counts[1:])
+        want_bb = np.full((256, 4), -1, np.int64)
+        for i in ids:
+            rs, cs = np.nonzero(label == i)
+            want_bb[i] = (rs.min(), rs.max() + 1, cs.min(), cs.max() + 1)
+        check("label_hist_bbox bboxes", bboxes, want_bb)
+
+        # occluders: two objects of another synthetic frame
+        f_label = png(ds._frame_paths(ds.syn[(k + 1) % len(ds.syn)])[2])
+        f_ids = [int(i) for i in np.unique(f_label) if i != 0][:2]
+        keep = ~np.isin(f_label, f_ids)
+        out, front, n, c2, b2 = native.apply_front_hist_bbox(
+            label, f_label, depth, *f_ids)
+        check("apply_front_hist_bbox label", out, label * keep)
+        check("apply_front_hist_bbox front", front, keep)
+        check("apply_front_hist_bbox count", n, int(((label * keep) != 0)
+                                                    .sum()))
+        c3, b3 = native.label_hist_bbox(label * keep, depth)
+        check("apply_front_hist_bbox counts", c2, c3)
+        check("apply_front_hist_bbox bboxes", b2, b3)
+        o3, f3, n3 = native.apply_front(label, f_label, *f_ids)
+        check("apply_front", (o3, f3), (label * keep, keep))
+
+        back = png(ds._frame_paths(ds.real[(k + 1) % len(ds.real)])[0])
+        for obj in [i for i in ids if want_counts[i] > 50][:3]:
+            ml, mv, box, cnt = native.object_mask(label, depth, obj)
+            check("object_mask", (ml, mv), (label == obj,
+                                            (label == obj) & valid))
+            rmin, rmax, cmin, cmax = snap_bbox(*want_bb[obj],
+                                               img_h=label.shape[0],
+                                               img_w=label.shape[1])
+            win = np.s_[rmin:rmax, cmin:cmax]
+            mask_win = native.object_mask_window(label, depth, obj, rmin,
+                                                 rmax, cmin, cmax)
+            check("object_mask_window", mask_win,
+                  ((label == obj) & valid)[win])
+            rows, cols = np.nonzero(mask_win)
+            rows, cols = rows + rmin, cols + cmin
+            check("backproject", native.backproject(
+                depth[rows, cols], rows, cols, cam.fx, cam.fy, cam.cx,
+                cam.cy, cam_scale, 1.0),
+                pinhole_point_fn_np(depth, cam, cam_scale)(rows, cols),
+                rtol=1e-5)
+            choose = (rows - rmin) * (cmax - cmin) + (cols - cmin)
+            check("remap_choose", native.remap_choose(
+                choose, rmax - rmin, cmax - cmin, CROP, CROP),
+                remap_choose_to_resized(choose, rmax - rmin, cmax - cmin,
+                                        CROP, CROP))
+            crop, back_win, occluder = rgb[win], back[win][..., :3], \
+                rgb[::-1][win]
+            plain = np.where((label[win] == 0)[..., None], back_win, crop)
+            check("compose_crop", native.compose_crop(
+                crop, back_win, label[win], occluder, keep[win]),
+                np.where(keep[win][..., None], plain, occluder))
+            for src in (crop, crop.astype(np.float32)):
+                check("normalize_resize", native.normalize_resize(
+                    src, CROP, CROP, IMAGENET_MEAN_255, IMAGENET_STD_255),
+                    resize_bilinear_np(normalize_image(src), CROP, CROP),
+                    atol=1e-4)
+            params = jitter_params(rng)
+            jit = native.color_jitter(crop, *params)
+            check("color_jitter", jit, apply_color_jitter(
+                crop.astype(np.float64), params), atol=0.35)
+            off = int(rng.integers(pool.size - jit.size + 1))
+            check("add_scaled", native.add_scaled(jit.copy(), pool[off:],
+                                                  7.0),
+                  jit + np.float32(7.0) * pool[off:off + jit.size].reshape(
+                      jit.shape))
+    mask = label != 0
+    picked = native.choose_pixels(mask, NUM_POINTS, seed=SEED)
+    if not (len(np.unique(picked)) == NUM_POINTS and (np.diff(picked) > 0)
+            .all() and mask.reshape(-1)[picked].all()):
+        raise AssertionError("[4o] choose_pixels: not a sorted subset of "
+                             "the mask without repeats")
+    noise = native.gaussian_noise(np.zeros(1 << 16, np.float32), 7.0, SEED)
+    if not (abs(noise.mean()) < 0.5 and 6.0 < noise.std() < 8.0):
+        raise AssertionError(f"[4o] gaussian_noise moments {noise.mean()}, "
+                             f"{noise.std()}")
+    log(f"[4o] every entry point against its plain version on "
+        f"{len(frames)} frames of the 4f root: worst errors {worst}")
+
+    # test-mode samples (no augmentation: the real frames of the training
+    # list and the test list) through the library against the numpy path
+    sample_err, n = {}, 0
+    for mode in ("train", "test"):
+        with host_library(False):
+            plain_ds = YCBDataset(root, mode, add_noise=False,
+                                  num_points=NUM_POINTS, crop_size=CROP)
+            idx = [i for i, fr in enumerate(plain_ds.frames)
+                   if fr.startswith("data/")]
+            want = [plain_ds[i] for i in idx]
+        lib_ds = YCBDataset(root, mode, add_noise=False,
+                            num_points=NUM_POINTS, crop_size=CROP)
+        for i, w in zip(idx, want):
+            g = lib_ds[i]
+            for name in w._fields:
+                a, b = np.asarray(getattr(g, name)), np.asarray(
+                    getattr(w, name))
+                if b.dtype == np.float32:
+                    check(f"sample {name}", a, b, atol=5e-5)
+                    sample_err[name] = worst[f"sample {name}"]
+                else:
+                    check(f"sample {name}", a, b)
+            n += 1
+    log(f"[4o] {n} test-mode samples of the 4f root, library against the "
+        f"numpy path: float fields within {sample_err}, the rest exact")
+    return {"build_s": rep["seconds"], "library": lib_path.name,
+            "worst": worst, "samples": n}
 
 
 @contextlib.contextmanager
@@ -3773,6 +3997,14 @@ def run() -> None:
         log(f"[2] built {name} in {r['seconds']:.2f} s\n{r['log'].strip()}")
     log(f"[2] build phase {build_s:.2f} s ({len(report)} compiled, "
         f"{len(build.SOURCES) - len(report)} already built)")
+    # the host data-plane library builds with g++ at its first use
+    from densefusion_tpu_torch import native
+    fresh = not build.host_library_path().exists()
+    t0 = time.perf_counter()
+    native._load()
+    log(f"[2] host library {build.host_library_path().name} "
+        f"{'built and ' if fresh else ''}loaded at first use in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(SEED)
@@ -3837,6 +4069,10 @@ def run() -> None:
     data = data_path(add_dist, phase_conv, data_root)
     path_launches["data"] = data["launches"]
     log(f"[4f] data path: launches over all steps {data['launches']}")
+
+    # 4o. the host library on the 4f root: a fresh build, every entry point
+    # against its plain version, test-mode samples against the numpy path
+    host = host_plane(data_root)
 
     # 4g. the training CLI on the 4f root: two epochs through both gates, a
     # resume in a fresh Trainer, serving from the checkpoint (launch counts
@@ -4038,24 +4274,37 @@ def run() -> None:
     from densefusion_tpu_torch.cli.benchmark import (
         bench_loader, bench_train_e2e,
     )
-    loader_rates = bench_loader(workers=DATA_WORKERS, batch=TRAIN_BATCH,
-                                dataset_root=data_root)
-    e2e = bench_train_e2e(batch=TRAIN_BATCH, steps=E2E_STEPS,
-                          workers=DATA_WORKERS, dataset_root=data_root)
-    log(f"[6] loader on the {NUM_OBJ}-class YCB root, B={TRAIN_BATCH}, "
-        f"{DATA_WORKERS} workers (host only): cold "
-        f"{loader_rates['loader_cold_samples_per_s']:.1f}, warm (threads) "
-        f"{loader_rates['loader_warm_samples_per_s']:.1f}, ring (fork "
-        f"workers) {loader_rates.get('loader_ring_samples_per_s', 0):.1f} "
-        f"samples/s; cache hit rate "
-        f"{loader_rates['loader_cache_hit_rate']:.3f}; card {card}")
-    if e2e["dtype"] != "bfloat16":
-        raise AssertionError(f"[6] bench_train_e2e ran {e2e['dtype']}")
-    log(f"[6] train_e2e B={TRAIN_BATCH} M={NUM_MESH} bf16, {E2E_STEPS} "
-        f"loader-fed steps: {e2e['train_e2e_steps_per_s']:.3f} steps/s "
-        f"({e2e['train_e2e_frames_per_s']:.1f} frames/s), device-only "
-        f"{e2e['train_device_only_steps_per_s']:.3f} steps/s, input-bound "
-        f"fraction {e2e['train_e2e_input_bound_fraction']:.4f}; card {card}")
+    # with the host library on (the default) and off, in turns
+    host_turns = []
+    for on in (True, False, False, True):
+        with host_library(on):
+            loader_rates = bench_loader(workers=DATA_WORKERS,
+                                        batch=TRAIN_BATCH,
+                                        dataset_root=data_root)
+            e2e = bench_train_e2e(batch=TRAIN_BATCH, steps=E2E_STEPS,
+                                  workers=DATA_WORKERS,
+                                  dataset_root=data_root)
+        host_turns.append({"library": on, "loader": loader_rates,
+                           "train_e2e": e2e})
+        lib = "library on" if on else "library off (numpy)"
+        log(f"[6] loader on the {NUM_OBJ}-class YCB root, {lib}, "
+            f"B={TRAIN_BATCH}, {DATA_WORKERS} workers (host only): cold "
+            f"{loader_rates['loader_cold_samples_per_s']:.1f}, warm "
+            f"(threads) {loader_rates['loader_warm_samples_per_s']:.1f}, "
+            f"ring (fork workers) "
+            f"{loader_rates.get('loader_ring_samples_per_s', 0):.1f} "
+            f"samples/s; cache hit rate "
+            f"{loader_rates['loader_cache_hit_rate']:.3f}; card {card}")
+        if e2e["dtype"] != "bfloat16":
+            raise AssertionError(f"[6] bench_train_e2e ran {e2e['dtype']}")
+        log(f"[6] train_e2e B={TRAIN_BATCH} M={NUM_MESH} bf16, {lib}, "
+            f"{E2E_STEPS} loader-fed steps: "
+            f"{e2e['train_e2e_steps_per_s']:.3f} steps/s "
+            f"({e2e['train_e2e_frames_per_s']:.1f} frames/s), device-only "
+            f"{e2e['train_device_only_steps_per_s']:.3f} steps/s, "
+            f"input-bound fraction "
+            f"{e2e['train_e2e_input_bound_fraction']:.4f}; card {card}")
+    loader_rates, e2e = host_turns[0]["loader"], host_turns[0]["train_e2e"]
 
     # the distance kernels at the phase-1 shape (8 of 32 rows symmetric),
     # and each at the phase-2 shapes for the record
@@ -4352,6 +4601,7 @@ def run() -> None:
                "data_path": {k: data[k] for k in ("losses", "sym_rows",
                                                   "max_err", "generate_s")},
                "loader": loader_rates, "train_e2e": e2e,
+               "host_library": {**host, "turns": host_turns},
                "cli_train": cli, "linemod_eval": lm, "ycb_eval": ycb,
                "cad": cad, "segnet": seg,
                "bench_steps": bench_steps,

@@ -1,6 +1,7 @@
-"""Data plane (host-side numpy): the sample schema and its assembly, the
-LineMOD, YCB-Video and customCAD readers, augmentation, the synthetic scene
-generators, and the batch loader. Batches go to the card through
+"""Data plane (host-side numpy and the host library
+:mod:`densefusion_tpu_torch.native`): the sample schema and its assembly,
+the LineMOD, YCB-Video and customCAD readers, augmentation, the synthetic
+scene generators, and the batch loader. Batches go to the card through
 :func:`to_device`.
 
 SegNet's samples are full frames and label maps (``SegSample``); the

@@ -1,16 +1,22 @@
-"""Image / cloud augmentations (host-side numpy, explicitly seeded;
-counterpart of ``densefusion_tpu/data/augment.py`` on its numpy path).
+"""Image / cloud augmentations (host-side, explicitly seeded; counterpart
+of ``densefusion_tpu/data/augment.py``).
 
-Numpy equivalents of the reference's torchvision augmentations: ColorJitter
+Equivalents of the reference's torchvision augmentations: ColorJitter
 (0.2, 0.2, 0.2, 0.05) on every training frame, uniform translation noise on
 cloud and target, additive gaussian pixel noise on synthetic frames. Every
 function takes an explicit ``np.random.Generator``, so runs are
-reproducible and the data order can be checkpointed.
+reproducible and the data order can be checkpointed. Jitter and pixel
+noise run in the host library (:mod:`densefusion_tpu_torch.native`); the
+numpy code is their plain version.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+
+from densefusion_tpu_torch import native
 
 
 def _blend(a: np.ndarray, b: np.ndarray, f: float) -> np.ndarray:
@@ -81,8 +87,11 @@ def jitter_params(rng: np.random.Generator, brightness: float = 0.2,
 def apply_color_jitter(img: np.ndarray,
                        params: tuple[np.ndarray, np.ndarray]) -> np.ndarray:
     """Apply drawn jitter params to a (H, W, 3) image in 0-255 range ->
-    float32 in 0-255."""
+    float32 in 0-255; a uint8 image takes the library's fused pass (float32
+    HSV; within 0.35 of the numpy ops)."""
     ops, factors = params
+    if img.dtype == np.uint8 and native.available():
+        return native.color_jitter(img, ops, factors)
     img = np.asarray(img, np.float32)
     for k in ops:
         if k == 0:
@@ -115,10 +124,37 @@ def translation_noise(rng: np.random.Generator, noise_trans: float) -> np.ndarra
     return rng.uniform(-noise_trans, noise_trans, size=3).astype(np.float32)
 
 
+_NOISE_POOL_BITS = 21  # 2^21 N(0,1) floats (8 MB), more than a frame window
+
+
+@functools.cache
+def _noise_pool() -> np.ndarray:
+    """The fixed, read-only N(0, 1) pool of the library's pixel noise,
+    drawn once per process from the JAX package's seed."""
+    pool = np.random.default_rng(0x6E6F6973).standard_normal(
+        1 << _NOISE_POOL_BITS).astype(np.float32)
+    pool.setflags(write=False)
+    return pool
+
+
 def gaussian_pixel_noise(img: np.ndarray, rng: np.random.Generator,
-                         scale: float = 7.0) -> np.ndarray:
-    """Additive N(0, scale) pixel noise (synthetic YCB frames), drawn from
-    ``rng``."""
+                         scale: float = 7.0,
+                         seed: int | None = None) -> np.ndarray:
+    """Additive N(0, scale) pixel noise (synthetic YCB frames). With
+    ``seed`` and the library: a slice of the fixed pool at offset ``seed %
+    (pool.size - img.size + 1)`` scaled in, or, for images larger than the
+    pool, the library's own draws from ``seed``; in place where ``img`` is a
+    writable contiguous float32 array. Otherwise drawn from ``rng``."""
+    if seed is not None and native.available():
+        arr = np.asarray(img)
+        if not (arr.dtype == np.float32 and arr.flags.c_contiguous
+                and arr.flags.writeable):
+            arr = arr.astype(np.float32, copy=True)
+        pool = _noise_pool()
+        if arr.size < pool.size:
+            off = seed % (pool.size - arr.size + 1)
+            return native.add_scaled(arr, pool[off:], scale)
+        return native.gaussian_noise(arr, scale, seed)
     return np.asarray(img, np.float32) + rng.normal(0.0, scale, img.shape)
 
 

@@ -1,5 +1,7 @@
 """Decoded-image LRU cache (host-side; counterpart of
-``densefusion_tpu/data/cache.py``, decoding with PIL).
+``densefusion_tpu/data/cache.py``). PNGs decode in the host library
+(:mod:`densefusion_tpu_torch.native`), other files and the PNG formats it
+does not take with PIL.
 
 Training revisits frames constantly (LineMOD repeats each epoch 20x), so
 caching decoded arrays trades RAM for decode time. Thread-safe (the loader
@@ -12,6 +14,8 @@ import collections
 import threading
 
 import numpy as np
+
+from densefusion_tpu_torch import native
 
 
 class ImageCache:
@@ -47,6 +51,10 @@ class ImageCache:
 
     @staticmethod
     def _decode(path: str) -> np.ndarray:
+        if path.endswith(".png") and native.available():
+            arr = native.decode_png_file(path)
+            if arr is not None:
+                return arr
         from PIL import Image
         with Image.open(path) as im:
             return np.array(im)

@@ -1,5 +1,5 @@
 """customCAD (Unity-rendered synthetic) dataset reader (counterpart of
-``densefusion_tpu/data/cad.py`` on its numpy path).
+``densefusion_tpu/data/cad.py``).
 
 Covers the capabilities of ``datasets/customCAD/dataset.py:18-264``: Unity
 FrameBuffer/Depth/mask PNGs, gt poses from ``transforms.txt`` (left-handed

@@ -1,10 +1,12 @@
 """Object-crop sample assembly shared by the dataset readers and serving
-(host-side numpy; counterpart of ``densefusion_tpu/data/common.py`` on its
-numpy path).
+(host-side; counterpart of ``densefusion_tpu/data/common.py``).
 
 mask -> bbox ladder -> choose sampling -> depth back-projection -> crop
 normalization, with the crop resized to one canonical size and ``choose``
-remapped to it, so every sample has the same shapes.
+remapped to it, so every sample has the same shapes. Back-projection and
+the fused normalize + resize and ``choose`` remap run in the host library
+(:mod:`densefusion_tpu_torch.native`); the numpy code is their plain
+version.
 """
 
 from __future__ import annotations
@@ -13,21 +15,39 @@ from typing import Callable
 
 import numpy as np
 
+from densefusion_tpu_torch import native
 from densefusion_tpu_torch.geometry.bbox import (
     snap_bbox, remap_choose_to_resized,
 )
-from densefusion_tpu_torch.data.schema import PoseSample, normalize_image
+from densefusion_tpu_torch.data.schema import (
+    PoseSample, normalize_image, IMAGENET_MEAN_255, IMAGENET_STD_255,
+)
 from densefusion_tpu_torch.data.augment import resize_bilinear_np
 
 
 def pinhole_point_fn(depth: np.ndarray, cam, depth_scale: float,
                      unit_scale: float = 1.0):
     """Returns ``point_fn(rows, cols) -> (n, 3)`` back-projecting those
-    pixels of ``depth``. ``cam`` needs fx/fy/cx/cy attributes;
-    ``depth_scale`` converts raw depth units, ``unit_scale`` converts to
-    meters."""
+    pixels of ``depth`` through the host library (the same float32
+    arithmetic as :func:`pinhole_point_fn_np`). ``cam`` needs fx/fy/cx/cy
+    attributes; ``depth_scale`` converts raw depth units, ``unit_scale``
+    converts to meters."""
+    if not native.available():
+        return pinhole_point_fn_np(depth, cam, depth_scale, unit_scale)
+
     def point_fn(rows, cols):
-        z = depth[rows, cols].astype(np.float32) / depth_scale
+        return native.backproject(
+            depth[rows, cols], rows, cols, cam.fx, cam.fy, cam.cx, cam.cy,
+            depth_scale, unit_scale)
+    return point_fn
+
+
+def pinhole_point_fn_np(depth: np.ndarray, cam, depth_scale: float,
+                        unit_scale: float = 1.0):
+    """The numpy back-projection: :func:`pinhole_point_fn`'s plain version,
+    and the serving path's (as in the JAX package's ``serve.py``)."""
+    def point_fn(rows, cols):
+        z = np.asarray(depth)[rows, cols].astype(np.float32) / depth_scale
         x3 = (cols.astype(np.float32) - cam.cx) * z / cam.fx
         y3 = (rows.astype(np.float32) - cam.cy) * z / cam.fy
         return np.stack([x3, y3, z], -1) * unit_scale
@@ -106,12 +126,23 @@ def assemble_sample(
         crop_rgb = rgb[rmin:rmax, cmin:cmax]
     if rgb_transform is not None:
         crop_rgb = rgb_transform(crop_rgb)
-    img = normalize_image(crop_rgb)
     choose = (rows - rmin) * crop_w + (cols - cmin)
-    if not native_crop and (crop_h, crop_w) != (crop_size, crop_size):
-        img = resize_bilinear_np(img, crop_size, crop_size)
-        choose = remap_choose_to_resized(choose, crop_h, crop_w,
+    resized = (crop_h, crop_w) != (crop_size, crop_size)
+    if native_crop:
+        img = normalize_image(crop_rgb)
+    elif native.available():
+        # the library normalizes and resizes in one pass, even at size
+        img = native.normalize_resize(crop_rgb, crop_size, crop_size,
+                                      IMAGENET_MEAN_255, IMAGENET_STD_255)
+        if resized:
+            choose = native.remap_choose(choose, crop_h, crop_w,
                                          crop_size, crop_size)
+    else:
+        img = normalize_image(crop_rgb)
+        if resized:
+            img = resize_bilinear_np(img, crop_size, crop_size)
+            choose = remap_choose_to_resized(choose, crop_h, crop_w,
+                                             crop_size, crop_size)
 
     return PoseSample(
         points=cloud,

@@ -1,5 +1,5 @@
 """LineMOD (Linemod_preprocessed layout) dataset reader (counterpart of
-``densefusion_tpu/data/linemod.py`` on its numpy path).
+``densefusion_tpu/data/linemod.py``).
 
 13 objects, gt poses from per-object ``gt.yml``, models from ASCII PLY (mm),
 train/test lists with 1/10 test subsampling, an eval mode on predicted

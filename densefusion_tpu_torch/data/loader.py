@@ -23,6 +23,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+from densefusion_tpu_torch import native
 from densefusion_tpu_torch.data.schema import PoseSample, collate
 
 
@@ -194,8 +195,10 @@ class BatchLoader:
 
     def _ensure_pool(self) -> _ProcessPool:
         if self._pool is None:
-            # template probes the dataset's static shapes; fork AFTER the
-            # probe so workers inherit a consistent dataset state
+            # the host library is built and loaded here, so the workers
+            # inherit it; the template probes the dataset's static shapes;
+            # fork AFTER the probe so workers inherit a consistent state
+            native.available()
             template = self.dataset[0]
             n_slots = 2 * self.batch_size + 4 * self.num_workers
             self._pool = _ProcessPool(self.dataset, template,

@@ -1,5 +1,4 @@
-"""YCB-Video dataset reader (counterpart of ``densefusion_tpu/data/ycb.py``
-on its numpy path).
+"""YCB-Video dataset reader (counterpart of ``densefusion_tpu/data/ycb.py``).
 
 Real and synthetic frame lists, two intrinsics sets selected by video
 index, a random object pick per frame (more than 50 valid depth pixels),
@@ -12,8 +11,12 @@ classes {12, 15, 18, 19, 20}.
 Every sample draws from its own ``default_rng((seed, epoch, index))`` in a
 fixed order: the occluder frame and ids, the object permutation, the
 background frame, the noise seed, the jitter, the translation noise, the
-model points, the cloud pixels, then the pixel noise. That order is part of
-the sample: the JAX reader's draws come in the same one.
+model points, the cloud pixels, then (on the numpy path) the pixel noise.
+That order is part of the sample: the JAX reader's draws come in the same
+one. The host library (:mod:`densefusion_tpu_torch.native`) composites the
+occluders and scans the label in one frame pass, makes the object mask for
+the crop window only, and adds the pixel noise from its fixed pool; the
+numpy code is its plain version.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 
 import numpy as np
 
+from densefusion_tpu_torch import native
 from densefusion_tpu_torch.geometry.bbox import bbox_from_mask
 from densefusion_tpu_torch.geometry.camera import YCB_CAM_1, YCB_CAM_2
 from densefusion_tpu_torch.data.schema import PoseSample
@@ -142,15 +146,17 @@ class YCBDataset:
         self._meta_cache[path] = got
         return got
 
-    def _composite_front(self, label: np.ndarray,
-                         rng: np.random.Generator):
+    def _composite_front(self, label: np.ndarray, depth: np.ndarray,
+                         fused: bool, rng: np.random.Generator):
         """Paste two objects of another synthetic frame in front as
         occluders: their pixels leave the current label, so an occluded
         object's visible mask shrinks. Up to five tries for an occluded
         label that keeps more than 1000 object pixels. Returns (label,
-        mask_front, front): ``mask_front`` is True where the frame is NOT
-        occluded, ``front`` the occluders' frame; both None when no try was
-        accepted."""
+        mask_front, front, counts, bboxes): ``mask_front`` is True where the
+        frame is NOT occluded, ``front`` the occluders' frame, both None
+        when no try was accepted. ``fused`` (the library's path) also gives
+        the occluded label's per-id depth-valid counts and tight bboxes from
+        the same frame pass; otherwise those are None."""
         for _ in range(5):
             seed_frame = self.syn[rng.integers(len(self.syn))]
             c_path, _, l_path, _ = self._frame_paths(seed_frame)
@@ -163,11 +169,18 @@ class YCBDataset:
             if len(ids) < 2:
                 continue
             pick = rng.choice(ids, size=2, replace=False)
-            mask_front = ~np.isin(f_label, pick)
-            t_label = label * mask_front
-            if (t_label != 0).sum() > 1000:
-                return t_label, mask_front, front
-        return label, None, None
+            if fused:
+                t_label, mask_front, count, counts, bboxes = \
+                    native.apply_front_hist_bbox(
+                        label, f_label, depth, int(pick[0]), int(pick[1]))
+                if count > 1000:
+                    return t_label, mask_front, front, counts, bboxes
+            else:
+                mask_front = ~np.isin(f_label, pick)
+                t_label = label * mask_front
+                if (t_label != 0).sum() > 1000:
+                    return t_label, mask_front, front, None, None
+        return label, None, None, None, None
 
     def __getitem__(self, index: int) -> PoseSample:
         rng = self._rng(index)
@@ -178,25 +191,46 @@ class YCBDataset:
         label = self.cache.load(l_path)
         objs, poses, cam_scale = self._load_meta(m_path)
         is_syn = not frame.startswith("data/")
+        # the library's one-pass scans take 16-bit depth and 8-bit labels
+        fused = (native.available() and depth.dtype == np.uint16
+                 and label.dtype == np.uint8)
 
-        mask_front = front = None
+        mask_front = front = counts = bboxes = None
         if self.add_noise:
-            label, mask_front, front = self._composite_front(label, rng)
+            label, mask_front, front, counts, bboxes = \
+                self._composite_front(label, depth, fused, rng)
 
         # a random object with enough depth-valid pixels
         order = rng.permutation(len(objs))
-        mask_depth = depth != 0
-        pick = next((k for k in order
-                     if ((label == objs[k]) & mask_depth).sum()
-                     > self.minimum_num_pt), None)
+        if fused:
+            if counts is None:   # no accepted occluder: one hist+bbox pass
+                counts, bboxes = native.label_hist_bbox(label, depth)
+            pick = next((k for k in order
+                         if counts[objs[k]] > self.minimum_num_pt), None)
+        else:
+            mask_depth = depth != 0
+            pick = next((k for k in order
+                         if ((label == objs[k]) & mask_depth).sum()
+                         > self.minimum_num_pt), None)
         if pick is None:
             return PoseSample.invalid(self.num_points, self.num_mesh,
                                       self.crop_size)
         obj_id = int(objs[pick])
-        mask_label = label == obj_id
-        mask = mask_label & mask_depth
-        # the whole label: an occluder may split the object into islands
-        bbox = bbox_from_mask(mask_label, largest_component=False)
+        mask = mask_fn = None
+        if fused:
+            # the bbox came out of the scan; the mask is made later for the
+            # snapped crop window only, the one region read
+            bb = bboxes[obj_id]
+            bbox = None if bb[0] < 0 else tuple(int(v) for v in bb)
+
+            def mask_fn(rmin, rmax, cmin, cmax, _label=label):
+                return native.object_mask_window(
+                    _label, depth, obj_id, rmin, rmax, cmin, cmax)
+        else:
+            mask_label = label == obj_id
+            mask = mask_label & mask_depth
+            # the whole label: an occluder may split the object into islands
+            bbox = bbox_from_mask(mask_label, largest_component=False)
 
         back = None
         if is_syn:  # a real background behind the render
@@ -207,24 +241,32 @@ class YCBDataset:
             return PoseSample.invalid(self.num_points, self.num_mesh,
                                       self.crop_size)
 
-        # drawn (and unused) where the JAX reader seeds its native noise
-        # pass, so every later draw comes from the same generator state
-        if is_syn:
-            rng.integers(2 ** 63)
+        # the pixel noise's seed: the library's noise is a slice of a fixed
+        # pool at an offset from it (the numpy path draws from ``rng``)
+        noise_seed = int(rng.integers(2 ** 63)) if is_syn else 0
         jitter = jitter_params(rng) if self.add_noise else None
 
         def crop_fn(rmin, rmax, cmin, cmax):
             # compositing, jitter and noise on the snapped crop only
             win = np.s_[rmin:rmax, cmin:cmax]
             crop = rgb[win]
-            if back is not None:
-                crop = np.where((label[win] == 0)[..., None], back[win], crop)
-            if mask_front is not None:
-                crop = np.where(mask_front[win][..., None], crop, front[win])
+            if fused and (back is not None or mask_front is not None):
+                crop = native.compose_crop(
+                    crop, None if back is None else back[win],
+                    None if back is None else label[win],
+                    None if mask_front is None else front[win],
+                    None if mask_front is None else mask_front[win])
+            else:
+                if back is not None:
+                    crop = np.where((label[win] == 0)[..., None], back[win],
+                                    crop)
+                if mask_front is not None:
+                    crop = np.where(mask_front[win][..., None], crop,
+                                    front[win])
             if jitter is not None:
                 crop = apply_color_jitter(crop, jitter)
             if is_syn:
-                crop = gaussian_pixel_noise(crop, rng, 7.0)
+                crop = gaussian_pixel_noise(crop, rng, 7.0, seed=noise_seed)
             return crop
 
         pose = poses[:, :, pick]
@@ -240,7 +282,8 @@ class YCBDataset:
         point_fn = pinhole_point_fn(depth, self._intrinsics(frame), cam_scale)
 
         return assemble_sample(
-            crop_fn=crop_fn, mask=mask, bbox=bbox, point_fn=point_fn,
+            crop_fn=crop_fn, mask=mask, mask_fn=mask_fn,
+            frame_hw=label.shape, bbox=bbox, point_fn=point_fn,
             model_points=model, target=target,
             obj_idx=obj_id - 1,  # 0-based class
             sym=(obj_id - 1) in YCB_SYM,

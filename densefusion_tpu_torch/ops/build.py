@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<digest>.so`` inside
@@ -7,6 +7,11 @@ wraps one entry point. The digest covers the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt.
 Nothing here runs at import time: the CPU tests import every module on
 machines with no ``nvcc``.
+
+The host data plane, ``csrc/dfnative.cpp``, takes its own route
+(:func:`build_host`): ``g++`` with the JAX package's flags for its copy of
+the same source, so the two libraries compute the same bytes, into
+``build/libdfnative-<digest>.so``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ BUILD = PACKAGE / "build"
 SOURCES = ("adds_remap", "add_dist", "nn", "phase_conv", "phase_conv_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_SOURCE = "dfnative"
+# densefusion_tpu/native.py's command line, source and output aside
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+GXX_LIBS = ("-lz",)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -90,6 +99,44 @@ def build_all(names=SOURCES, csrc: Path | None = None,
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return report
+
+
+def host_library_path(csrc: Path | None = None,
+                      build: Path | None = None) -> Path:
+    """Where ``<csrc>/dfnative.cpp`` builds to: ``build/libdfnative-
+    <digest>.so``, the digest over the source and the flags."""
+    csrc, build = csrc or CSRC, build or BUILD
+    h = hashlib.sha256((csrc / f"{HOST_SOURCE}.cpp").read_bytes())
+    h.update(" ".join(GXX_FLAGS + GXX_LIBS).encode())
+    return build / f"lib{HOST_SOURCE}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(csrc: Path | None = None,
+               build: Path | None = None) -> dict:
+    """Compile the host library with ``g++`` into :func:`host_library_path`
+    (written under a per-process name, then renamed into place, so builds
+    started together by several processes never expose half a file).
+    Returns ``{"seconds", "log"}``; raises with the compiler's output if
+    the build fails."""
+    csrc, build = csrc or CSRC, build or BUILD
+    build.mkdir(parents=True, exist_ok=True)
+    out = host_library_path(csrc, build)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = ["g++", *GXX_FLAGS, "-o", str(tmp),
+           str(csrc / f"{HOST_SOURCE}.cpp"), *GXX_LIBS]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise RuntimeError(f"g++ could not be run for {HOST_SOURCE}.cpp: "
+                           f"{e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {HOST_SOURCE}.cpp:\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, out)
+    return {"seconds": time.perf_counter() - t0, "log": proc.stdout}
 
 
 def load(name: str) -> ctypes.CDLL:

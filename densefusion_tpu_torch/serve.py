@@ -33,7 +33,7 @@ import torch
 import torch.distributed as dist
 
 from densefusion_tpu_torch.data.common import (
-    assemble_sample, pinhole_point_fn,
+    assemble_sample, pinhole_point_fn_np,
 )
 from densefusion_tpu_torch.data.schema import PoseSample, collate
 from densefusion_tpu_torch.eval.pipeline import InferencePipeline
@@ -124,8 +124,8 @@ class PoseEstimator:
             bbox = bbox_from_mask(mask)
             if bbox is None:
                 return PoseSample.invalid(self.num_points, 8, self.crop_size)
-        point_fn = pinhole_point_fn(depth, intrinsics,
-                                    intrinsics.depth_scale, unit_scale)
+        point_fn = pinhole_point_fn_np(depth, intrinsics,
+                                       intrinsics.depth_scale, unit_scale)
         placeholder = np.zeros((8, 3), np.float32)
         return assemble_sample(
             rgb=np.asarray(rgb)[..., :3], mask=mask, bbox=bbox,

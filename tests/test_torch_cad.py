@@ -6,8 +6,9 @@ CPU at the Unity frame size (520x1109):
 * the generators write the same files for one seed (PNG pixels and the
   text files equal), with and without the hole augmentation;
 * ``CADDataset`` in train and test mode gives the JAX reader's samples,
-  every field exact, with the JAX native library off; the ray map, the
-  depth linearization and the quaternion conventions equal;
+  every field exact, with both native libraries on (each package's
+  default) and with both off; the ray map, the depth linearization and the
+  quaternion conventions equal;
 * ``cad_prep`` writes the JAX masks and split; ``inspect_sample`` writes
   the JAX PLY files for ``cad``, ``ycb`` and ``linemod``;
 * one ``cli.train --dataset cad`` epoch writes a checkpoint that the JAX
@@ -29,6 +30,7 @@ import jax
 import jax.numpy as jnp
 
 import densefusion_tpu.native as jnative
+import densefusion_tpu_torch.native as tnative
 from densefusion_tpu.cli import cad_prep as j_cad_prep
 from densefusion_tpu.cli import eval_cad as j_eval_cad
 from densefusion_tpu.cli import inspect_sample as j_inspect
@@ -54,8 +56,17 @@ KW = dict(num_points=N, crop_size=CROP, num_mesh_points=N)
 
 @pytest.fixture
 def no_library(monkeypatch):
-    """The JAX package's numpy paths: its native library is not found."""
+    """Both packages' numpy paths: neither native library is found."""
     monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+
+
+@pytest.fixture
+def with_library():
+    """Both packages' default paths, through their native libraries."""
+    if not jnative.available():
+        pytest.skip("the JAX package's native library is not built here")
+    assert tnative.available()
 
 
 @pytest.fixture(scope="module")
@@ -104,11 +115,7 @@ def test_generators_write_the_same_files(roots, tmp_path, holes):
     assert _assert_trees_equal(jroot, troot) == 3 * n_frames + 5
 
 
-@pytest.mark.parametrize("mode", ["train", "test"])
-def test_reader_matches_jax(roots, mode, no_library):
-    """The same root, seed, epoch and index give the same sample: train
-    mode with translation noise and color jitter, test mode's every tenth
-    frame, the refine phase's mesh."""
+def _readers_match_jax(roots, mode, **tol):
     root = roots[1]
     for refine in (False, True):
         ours = cad.CADDataset(root, mode, refine=refine, **KW)
@@ -121,12 +128,27 @@ def test_reader_matches_jax(roots, mode, no_library):
             for i in range(len(ours)):
                 got = ours[i]
                 assert got.valid and got.points.shape == (N, 3)
-                assert_samples_equal(got, theirs[i])
+                assert_samples_equal(got, theirs[i], **tol)
     # the cloud lands on the gt-posed model: the Unity decode is consistent
     s = cad.CADDataset(root, "test", add_noise=False, num_points=N,
                        crop_size=CROP, num_mesh_points=2000)[0]
     d = np.linalg.norm(s.points[:, None] - s.target[None], axis=-1).min(1)
     assert d.mean() < 0.01
+
+
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_reader_matches_jax(roots, mode, no_library):
+    """The same root, seed, epoch and index give the same sample: train
+    mode with translation noise and color jitter, test mode's every tenth
+    frame, the refine phase's mesh."""
+    _readers_match_jax(roots, mode)
+
+
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_reader_matches_jax_with_library(roots, mode, with_library):
+    """The same with both libraries on (the jitter's fused pass, the fused
+    normalize + resize and ``choose`` remap): every field exactly equal."""
+    _readers_match_jax(roots, mode, img_atol=0.0)
 
 
 def test_unity_conventions_match_jax(roots, rng):
@@ -183,9 +205,7 @@ def small_roots(tmp_path_factory):
     return {"ycb": str(tmp / "ycb"), "linemod": str(tmp / "linemod")}
 
 
-@pytest.mark.parametrize("dataset", ["cad", "ycb", "linemod"])
-def test_inspect_sample_matches_jax(roots, small_roots, tmp_path, dataset,
-                                    no_library):
+def _inspect_matches_jax(roots, small_roots, tmp_path, dataset):
     root = roots[1] if dataset == "cad" else small_roots[dataset]
     args = ["--dataset", dataset, "--dataset_root", root, "--index", "1"]
     got = inspect_sample.main([*args, "--out_dir", str(tmp_path / "o")])
@@ -196,6 +216,20 @@ def test_inspect_sample_matches_jax(roots, small_roots, tmp_path, dataset,
     for f in names:
         assert filecmp.cmp(tmp_path / "o" / f, tmp_path / "j" / f,
                            shallow=False), f
+
+
+@pytest.mark.parametrize("dataset", ["cad", "ycb", "linemod"])
+def test_inspect_sample_matches_jax(roots, small_roots, tmp_path, dataset,
+                                    no_library):
+    _inspect_matches_jax(roots, small_roots, tmp_path, dataset)
+
+
+@pytest.mark.parametrize("dataset", ["cad", "ycb", "linemod"])
+def test_inspect_sample_matches_jax_with_library(roots, small_roots,
+                                                 tmp_path, dataset,
+                                                 with_library):
+    """Both libraries on: the same PLY bytes."""
+    _inspect_matches_jax(roots, small_roots, tmp_path, dataset)
 
 
 def test_train_cad_checkpoint_loads_in_jax(roots, tmp_path):

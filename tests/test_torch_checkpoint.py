@@ -2,9 +2,9 @@
 
 A JAX ``Trainer`` on a synthetic one-object LineMOD root (the sizes of
 ``tests/test_train.py``: N=64, mesh 64, 64 px crops, B=2, ``knn_backend=
-"xla"``; the JAX package's native library off, so its readers give the
-port's samples) trains one phase-1 epoch and one phase-2 epoch and saves a
-checkpoint after each; a third is a ``grad_accum=2`` (``optax.MultiSteps``)
+"xla"``; both packages' native libraries off, so their readers give the
+numpy paths' samples) trains one phase-1 epoch and one phase-2 epoch and
+saves a checkpoint after each; a third is a ``grad_accum=2`` (``optax.MultiSteps``)
 checkpoint with random moments. Held here:
 
 * the codec: a JAX ``state.msgpack`` re-encodes byte for byte; flax reads
@@ -18,7 +18,8 @@ checkpoint with random moments. Held here:
   checkpoint against the JAX trainer's (the refiner has no dropout and the
   loader gives JAX's order): refiner parameters and moments to the
   tolerance of ``tests/test_torch_train.py::test_phase2_step_matches_jax``,
-  ``test_epoch`` to rel 1e-5.
+  ``test_epoch`` to rel 1e-5; and again with both libraries on (each
+  package's default), where the readers give exactly equal samples.
 """
 
 import dataclasses
@@ -35,6 +36,7 @@ import optax
 from flax import serialization
 
 import densefusion_tpu.native as jnative
+import densefusion_tpu_torch.native as tnative
 from densefusion_tpu.data import generate_linemod_style_dataset
 from densefusion_tpu.train import Trainer as JTrainer
 from densefusion_tpu.train import load_checkpoint as j_load_checkpoint
@@ -78,13 +80,15 @@ def _assert_trees_equal(got: dict, want: dict, where: str):
         np.testing.assert_array_equal(g, w, err_msg=f"{where} {p}")
 
 
-@pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def _jax_run(tmp_path_factory, library: bool):
     """The JAX trainer's checkpoints (phase 1, phase 2, MultiSteps) and its
-    next phase-2 epoch from the phase-2 one, with the JAX package's native
-    library off for the whole module."""
+    next phase-2 epoch from the phase-2 one, with its native library on or
+    (``library`` False) off."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jnative, "_load", lambda: None)
+        if not library:
+            mp.setattr(jnative, "_load", lambda: None)
+        elif not jnative.available():
+            pytest.skip("the JAX package's native library is not built here")
         root = str(tmp_path_factory.mktemp("lm_ck"))
         generate_linemod_style_dataset(root, objlist=(1,), n_train=4,
                                        n_test=20, seed=9)
@@ -135,9 +139,21 @@ def run(tmp_path_factory):
                  "nu": jax.tree.map(np.array, jt.state.opt_state[0].nu)}
         test_after = jt.test_epoch()
         jt.close()
-        yield {"jcfg": jcfg, "paths": paths, "out": out,
-               "jax_next": after, "jax_test_before": test_before,
-               "jax_test_after": test_after}
+        return {"jcfg": jcfg, "paths": paths, "out": out,
+                "jax_next": after, "jax_test_before": test_before,
+                "jax_test_after": test_after}
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """The JAX run with its native library off."""
+    return _jax_run(tmp_path_factory, library=False)
+
+
+@pytest.fixture(scope="module")
+def run_with_library(tmp_path_factory):
+    """The JAX run with its native library on."""
+    return _jax_run(tmp_path_factory, library=True)
 
 
 def _port_cfg(run, **kw) -> RunConfig:
@@ -298,7 +314,7 @@ def test_generator_and_key_round_trip(run, tmp_path):
         open(os.path.join(path, "state.msgpack"), "rb").read())
 
 
-def test_resumed_phase2_epoch_matches_jax(run):
+def _resumed_phase2_epoch_matches_jax(run):
     """From the JAX phase-2 checkpoint both trainers run their next epoch
     on the same batches. Refiner gradients read from Adam's moments to
     1e-4 of each tensor's largest; parameters to atol 1e-6 where the first
@@ -332,3 +348,14 @@ def test_resumed_phase2_epoch_matches_jax(run):
     assert tr.state.step == 6 and tr.curriculum.refine_steps == 4
     np.testing.assert_allclose(tr.test_epoch(), run["jax_test_after"],
                                rtol=1e-5)
+
+
+def test_resumed_phase2_epoch_matches_jax(run, monkeypatch):
+    """Both libraries off: the numpy paths' batches."""
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+    _resumed_phase2_epoch_matches_jax(run)
+
+
+def test_resumed_phase2_epoch_matches_jax_with_library(run_with_library):
+    """Both libraries on: the readers' samples exactly equal."""
+    _resumed_phase2_epoch_matches_jax(run_with_library)

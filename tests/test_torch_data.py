@@ -1,15 +1,16 @@
 """Port parity: the data plane (``densefusion_tpu_torch.data``) against
 ``densefusion_tpu.data``.
 
-The JAX readers pass through ``runtime/libdfnative.so`` where it loads, and
-their training samples then differ from their numpy path (the synthetic
-frames' pixel noise is drawn otherwise). The port follows the numpy path,
-so it is held to the JAX package with the library switched off, on this
-side only (``native._load`` patched to find no library): every field
-exact, the image within 1e-6. With the library on, test-mode samples agree
-within 5e-5, the tolerance of the native crop's resize
-(``tests/test_torch_pipeline.py``). The synthetic generators write the same
-files for one seed.
+Both packages pass their samples through a host library of one source
+(``runtime/libdfnative.so`` on the JAX side, the port's own build of
+``densefusion_tpu_torch/csrc/dfnative.cpp``), their default path. With both
+libraries on, every field of every sample is exactly equal, in train and
+test mode over two epochs: the library's training samples differ from the
+numpy path's (the synthetic frames' pixel noise comes from a fixed pool),
+and the port's draw the same noise. With both libraries switched off
+(``native._load`` patched to find none, on both sides), the numpy paths
+are held to each other: every field exact, the image within 1e-6. The
+synthetic generators write the same files for one seed.
 """
 
 import filecmp
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 
 import densefusion_tpu.native as jnative
+import densefusion_tpu_torch.native as tnative
 from densefusion_tpu.data import augment as jaugment
 from densefusion_tpu.data import common as jcommon
 from densefusion_tpu.data import linemod as jlinemod
@@ -38,8 +40,17 @@ LM_OBJS = [1, 10]        # 10, the eggbox, is symmetric
 
 @pytest.fixture
 def no_library(monkeypatch):
-    """The JAX package's numpy paths: its native library is not found."""
+    """Both packages' numpy paths: neither native library is found."""
     monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+
+
+@pytest.fixture
+def with_library():
+    """Both packages' default paths, through their native libraries."""
+    if not jnative.available():
+        pytest.skip("the JAX package's native library is not built here")
+    assert tnative.fused_scan_supported()
 
 
 @pytest.fixture(scope="module")
@@ -99,11 +110,9 @@ AUGMENTS = ["jitter_params", "apply_color_jitter_uint8",
             "gaussian_pixel_noise", "resize_bilinear_np"]
 
 
-@pytest.mark.parametrize("name", AUGMENTS)
-def test_augment_matches_jax(name, no_library, rng):
-    """Each augmentation from the same generator state as the JAX one's
-    numpy path: equal results, and the generators left in the same
-    state."""
+def _augment_case(name, rng):
+    """(port result, JAX result, port generator, JAX generator) of one
+    augmentation from one generator state."""
     img8 = rng.integers(0, 256, (33, 47, 3)).astype(np.uint8)
     imgf = rng.uniform(0, 255, (33, 47, 3)).astype(np.float32)
     seed = int(rng.integers(1 << 30))
@@ -120,13 +129,43 @@ def test_augment_matches_jax(name, no_library, rng):
             img8, g, 7.0),
         "resize_bilinear_np": lambda m, g: m.resize_bilinear_np(imgf, 20,
                                                                  64),
+        # the library's paths: the pool in place on a float32 crop, on a
+        # copy of a uint8 one, and its own draws past the pool's size
+        "gaussian_pixel_noise_seeded": lambda m, g: m.gaussian_pixel_noise(
+            imgf.copy(), g, 7.0, seed=seed),
+        "gaussian_pixel_noise_seeded_uint8": lambda m, g:
+            m.gaussian_pixel_noise(img8, g, 7.0, seed=seed),
+        "gaussian_pixel_noise_seeded_large": lambda m, g:
+            m.gaussian_pixel_noise(np.zeros((700, 1000, 3), np.float32), g,
+                                   7.0, seed=seed),
     }
-    got, want = calls[name](augment, ours), calls[name](jaugment, theirs)
+    return calls[name](augment, ours), calls[name](jaugment, theirs), \
+        ours, theirs
+
+
+def _assert_augment_equal(got, want, ours, theirs):
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert np.asarray(g).dtype == np.asarray(w).dtype
         np.testing.assert_array_equal(g, w)
     assert ours.integers(1 << 30) == theirs.integers(1 << 30)
+
+
+@pytest.mark.parametrize("name", AUGMENTS)
+def test_augment_matches_jax(name, no_library, rng):
+    """Each augmentation from the same generator state as the JAX one's
+    numpy path: equal results, and the generators left in the same
+    state."""
+    _assert_augment_equal(*_augment_case(name, rng))
+
+
+@pytest.mark.parametrize("name", AUGMENTS + [
+    "gaussian_pixel_noise_seeded", "gaussian_pixel_noise_seeded_uint8",
+    "gaussian_pixel_noise_seeded_large"])
+def test_augment_matches_jax_with_library(name, with_library, rng):
+    """Both libraries on: uint8 jitter through the fused pass, seeded pixel
+    noise from the fixed pool; equal results and generator states."""
+    _assert_augment_equal(*_augment_case(name, rng))
 
 
 def test_resize_bilinear_np_importable_from_data():
@@ -147,10 +186,9 @@ HOOKS = ["plain", "add_t", "rgb_transform", "crop_fn", "mask_fn",
          "native_crop", "crop_at_size", "empty_mask", "few_pixels"]
 
 
-@pytest.mark.parametrize("hook", HOOKS)
-def test_assemble_sample_matches_jax(hook, no_library, rng):
-    """``assemble_sample`` with each hook, against the JAX function's numpy
-    path on the same inputs and generator state."""
+def _assemble_both(hook, rng):
+    """(port sample, JAX sample) of ``assemble_sample`` with one hook, on
+    the same inputs and generator state."""
     rgb, depth, mask = _frame(rng)
     model = rng.uniform(-0.05, 0.05, (40, 3)).astype(np.float32)
     target = model + np.float32(0.7)
@@ -194,7 +232,22 @@ def test_assemble_sample_matches_jax(hook, no_library, rng):
     assert bool(got.valid) == (hook != "empty_mask")
     if hook == "native_crop":
         assert got.img.shape == (80, 80, 3)
-    assert_samples_equal(got, want)
+    return got, want
+
+
+@pytest.mark.parametrize("hook", HOOKS)
+def test_assemble_sample_matches_jax(hook, no_library, rng):
+    """``assemble_sample`` with each hook, against the JAX function's numpy
+    path on the same inputs and generator state."""
+    assert_samples_equal(*_assemble_both(hook, rng))
+
+
+@pytest.mark.parametrize("hook", HOOKS)
+def test_assemble_sample_matches_jax_with_library(hook, with_library, rng):
+    """The same with both libraries on (back-projection, the fused
+    normalize + resize, the ``choose`` remap, the uint8 jitter): every
+    field exactly equal."""
+    assert_samples_equal(*_assemble_both(hook, rng), img_atol=0.0)
 
 
 def test_subsample_model_points_matches_jax(rng):
@@ -299,13 +352,21 @@ def test_readers_match_jax_without_library(roots, case, no_library):
 
 @pytest.mark.parametrize("case", [
     "linemod-test", "linemod-eval", "ycb-test", "posecnn"])
-def test_readers_match_jax_with_library_in_test_mode(roots, case):
-    """Library on, the JAX readers crop and resize natively: test-mode
-    samples agree within 5e-5."""
-    if not jnative.available():
-        pytest.skip("the JAX package's native library is not built here")
-    assert _compare_readers(case, roots[0], img_atol=5e-5,
-                            float_atol=5e-5) > 0
+def test_readers_match_jax_with_library_in_test_mode(roots, case,
+                                                     with_library):
+    """Both libraries on (PNG decode, back-projection, the fused normalize
+    + resize): test-mode samples exactly equal, over two epochs."""
+    assert _compare_readers(case, roots[0], img_atol=0.0) > 0
+
+
+@pytest.mark.parametrize("case", ["linemod-train", "ycb-train"])
+def test_readers_match_jax_with_library_in_train_mode(roots, case,
+                                                      with_library):
+    """Both libraries on, train mode over two epochs: the jitter's fused
+    pass; for YCB the occluders and label scans in one frame pass, the
+    crop-window mask, the composited backgrounds and the pooled pixel
+    noise of synthetic frames. Every field exactly equal."""
+    assert _compare_readers(case, roots[0], img_atol=0.0) > 0
 
 
 def test_ycb_reader_reads_port_root_and_flags(roots):

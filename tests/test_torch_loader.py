@@ -1,8 +1,9 @@
 """Port parity: the batch loader (``densefusion_tpu_torch.data.loader``)
 against ``densefusion_tpu.data.loader``: the same batch order for the same
 (seed, epoch), identical batches from every worker mode (and from the JAX
-loader over the JAX reader, its native library off), mid-epoch resume,
-errors raised in the consumer, and the decoded-frame cache under threads."""
+loader over the JAX reader, both native libraries on, and both off),
+mid-epoch resume, errors raised in the consumer, and the decoded-frame
+cache under threads."""
 
 import sys
 import threading
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 
 import densefusion_tpu.native as jnative
+import densefusion_tpu_torch.native as tnative
 from densefusion_tpu.data import loader as jloader
 from densefusion_tpu.data import ycb as jycb
 
@@ -78,9 +80,9 @@ def test_batch_order_matches_jax(seed, epoch, shuffle, drop_last):
                                   order[:20] if drop_last else order)
 
 
-def test_worker_modes_give_identical_batches(ycb_root, ycb_ds, monkeypatch):
+def _worker_modes_match_jax(ycb_root, ycb_ds):
     """One worker, a thread pool and fork workers give the same batches,
-    and so does the JAX loader over the JAX reader (library off)."""
+    and so does the JAX loader over the JAX reader."""
     mk = lambda **kw: BatchLoader(ycb_ds, 4, drop_last=False, seed=2, **kw)
     want = _epoch(mk(num_workers=1), 1)
     _assert_batches_equal(_epoch(mk(num_workers=3), 1), want)
@@ -91,12 +93,28 @@ def test_worker_modes_give_identical_batches(ycb_root, ycb_ds, monkeypatch):
         _assert_batches_equal(_epoch(proc, 1), want)   # the pool again
     finally:
         proc.close()
-    monkeypatch.setattr(jnative, "_load", lambda: None)
     jds = jycb.YCBDataset(ycb_root, "train", **KW)
     _assert_batches_equal(
         _epoch(jloader.BatchLoader(jds, 4, drop_last=False, seed=2,
                                    num_workers=1), 1), want)
     assert all(b.valid.any() for b in want)
+
+
+def test_worker_modes_give_identical_batches(ycb_root, ycb_ds):
+    """Both native libraries on (each package's default): every worker
+    mode's batches, and the JAX loader's, exactly equal."""
+    if not jnative.available():
+        pytest.skip("the JAX package's native library is not built here")
+    _worker_modes_match_jax(ycb_root, ycb_ds)
+
+
+def test_worker_modes_give_identical_batches_without_library(
+        ycb_root, ycb_ds, monkeypatch):
+    """Both libraries off (the fork workers inherit the patch): the numpy
+    paths' batches, every worker mode and the JAX loader's, equal."""
+    monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+    _worker_modes_match_jax(ycb_root, ycb_ds)
 
 
 @pytest.mark.parametrize("mode", ["thread", "process"])

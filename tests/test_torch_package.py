@@ -60,6 +60,42 @@ def test_port_imports_no_jax(extra):
     assert _probe(extra) == []
 
 
+# Reads a YCB training sample through the port (the host library on every
+# path it has) and lists the mapped dfnative libraries.
+_MAPS_PROBE = """
+import json, sys, tempfile
+from densefusion_tpu_torch import native
+from densefusion_tpu_torch.data import YCBDataset, generate_ycb_style_dataset
+root = tempfile.mkdtemp(dir=sys.argv[1])
+generate_ycb_style_dataset(root, n_classes=2, n_real=2, n_syn=2, n_test=1,
+                           seed=0)
+ds = YCBDataset(root, "train", num_points=32, crop_size=32)
+assert all(ds[i].valid for i in range(len(ds)))
+with open("/proc/self/maps") as f:
+    maps = sorted({ln.split()[-1] for ln in f if "dfnative" in ln})
+print(json.dumps({"maps": maps, "lib": native._load()._name,
+                  "modules": sorted(n for n in sys.modules
+                                    if n.split(".")[0] in
+                                    ("jax", "densefusion_tpu"))}))
+"""
+
+
+def test_port_maps_only_its_own_host_library(tmp_path):
+    """The port's readers load the port's build of ``csrc/dfnative.cpp``
+    from its ``build/``, never ``runtime/libdfnative.so``, and never import
+    ``densefusion_tpu.native`` (or anything of the JAX package)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", _MAPS_PROBE, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    lib = Path(got["lib"])
+    assert lib.parent == ROOT / "densefusion_tpu_torch" / "build"
+    assert lib.name.startswith("libdfnative-")
+    assert [Path(m) for m in got["maps"]] == [lib]
+    assert got["modules"] == []
+
+
 def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

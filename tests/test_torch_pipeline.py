@@ -150,15 +150,14 @@ def test_pose_estimator_estimate_frame(nets, rng):
                       nets["p_ref"], **kw)
     est = PoseEstimator(*_port_nets(nets), nets["sd_pose"], nets["sd_ref"],
                         device="cpu", **kw)
-    # host assembly first: the JAX package may crop through its native
-    # library, whose bilinear weights are float32 (the port's numpy resize
-    # forms them in float64), so the crops agree to atol 5e-5
+    # host assembly first: both packages crop through their native
+    # libraries (one source), so the samples are equal
     for i in (1, 2, 3):
         js = jest.make_sample(rgb, depth, label == i, i - 1, J_CAM, 1e-3)
         ps = est.make_sample(rgb, depth, label == i, i - 1, LINEMOD_CAM, 1e-3)
         np.testing.assert_array_equal(ps.choose, js.choose)
         np.testing.assert_array_equal(ps.points, js.points)
-        np.testing.assert_allclose(ps.img, js.img, atol=5e-5)
+        np.testing.assert_array_equal(ps.img, js.img)
     jest.rng, est.rng = np.random.default_rng(0), np.random.default_rng(0)
 
     want = jest.estimate_frame(rgb, depth, label, J_CAM, unit_scale=1e-3)

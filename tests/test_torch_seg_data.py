@@ -3,11 +3,11 @@
 One root per format (the generators are held equal in
 ``tests/test_torch_data.py``): a 4-class YCB-format set at 480x640 with 3
 real and 3 synthetic training frames, and a LineMOD set of objects 1 and
-10. The JAX readers run with their native library off (its color jitter
-draws differently); every field of every sample is then equal, over
-several (epoch, index), in train mode (jitter, background composite, the
-two flips) and test mode, and a thread-worker ``BatchLoader`` epoch gives
-JAX's batches.
+10. With both packages' native libraries on (each one's default: the
+color jitter in the library's fused pass) and with both off (the numpy
+jitter), every field of every sample is equal, over several (epoch,
+index), in train mode (jitter, background composite, the two flips) and
+test mode, and a thread-worker ``BatchLoader`` epoch gives JAX's batches.
 """
 
 import numpy as np
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import densefusion_tpu.native as jnative
+import densefusion_tpu_torch.native as tnative
 from densefusion_tpu.data import seg as jseg
 from densefusion_tpu.data.loader import BatchLoader as JBatchLoader
 from densefusion_tpu_torch.data import (
@@ -26,10 +27,19 @@ from densefusion_tpu_torch.data import (
 LM_OBJS = (1, 10)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture
 def no_library(monkeypatch):
-    """The JAX package's numpy paths: its native library is not found."""
+    """Both packages' numpy paths: neither native library is found."""
     monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+
+
+@pytest.fixture
+def with_library():
+    """Both packages' default paths, through their native libraries."""
+    if not jnative.available():
+        pytest.skip("the JAX package's native library is not built here")
+    assert tnative.available()
 
 
 @pytest.fixture(scope="module")
@@ -60,9 +70,7 @@ def assert_seg_equal(got, want, where=""):
         np.testing.assert_array_equal(g, w, err_msg=f"{where} {name}")
 
 
-@pytest.mark.parametrize("which", ["ycb", "linemod"])
-@pytest.mark.parametrize("mode", ["train", "test"])
-def test_samples_match_jax(roots, which, mode):
+def _samples_match_jax(roots, which, mode):
     ds, jds = _pair(roots, which, mode)
     assert len(ds) == len(jds) > 0
     for epoch in (0, 1, 3):
@@ -82,7 +90,19 @@ def test_samples_match_jax(roots, which, mode):
         assert set(np.unique(ds[0].label)) <= {0, ds.items[0][0]}
 
 
-def test_train_mode_augments(roots):
+@pytest.mark.parametrize("which", ["ycb", "linemod"])
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_samples_match_jax(roots, which, mode, no_library):
+    _samples_match_jax(roots, which, mode)
+
+
+@pytest.mark.parametrize("which", ["ycb", "linemod"])
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_samples_match_jax_with_library(roots, which, mode, with_library):
+    _samples_match_jax(roots, which, mode)
+
+
+def test_train_mode_augments(roots, no_library):
     """Train mode changes the pixels (jitter, flips), test mode does not;
     the sample of one (seed, epoch, index) is the same on every read."""
     train, _ = _pair(roots, "ycb", "train")
@@ -95,9 +115,7 @@ def test_train_mode_augments(roots):
     assert test.use_noise is False
 
 
-def test_loader_batches_match_jax(roots):
-    """Thread workers and ``collate_seg``: epoch 2's batches equal the JAX
-    loader's (order from ``default_rng((seed, epoch))``)."""
+def _loader_batches_match_jax(roots):
     ds, jds = _pair(roots, "linemod", "train")
     got = list(BatchLoader(ds, 2, collate_fn=collate_seg, num_workers=2,
                            seed=5).epoch(2))
@@ -106,6 +124,17 @@ def test_loader_batches_match_jax(roots):
     assert len(got) == len(want) == len(ds) // 2
     for i, (g, w) in enumerate(zip(got, want)):
         assert_seg_equal(g, w, f"batch {i}")
+
+
+def test_loader_batches_match_jax(roots, no_library):
+    """Thread workers and ``collate_seg``: epoch 2's batches equal the JAX
+    loader's (order from ``default_rng((seed, epoch))``)."""
+    _loader_batches_match_jax(roots)
+
+
+def test_loader_batches_match_jax_with_library(roots, with_library):
+    """The same with both libraries on."""
+    _loader_batches_match_jax(roots)
 
 
 def test_seg_to_device_layout(roots):
