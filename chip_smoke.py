@@ -189,6 +189,21 @@ fails. Phases, in order:
    --what knn --trace_dir`` and ``cli.train --trace_dir`` (one epoch on
    the 4h root) each write a trace, and whether it names the hand-written
    kernels;
+   4p. the deployment demos, in this process through their ``main``
+   (``examples/gpu_ycb_e2e_synthetic.py``, ``gpu_linemod_two_stage.py``,
+   ``gpu_serve_soak.py``) at full width and small depth: YCB with 2
+   classes (14 + 2 frames, 4 keyframes, N=1000, 192 px, one epoch) through
+   ``cli.train`` and ``cli.eval_ycb``; the LineMOD two stages on ape and
+   eggbox (8 + 10 frames each): SegNet at 480x640 for one epoch, its
+   ``--class_vs_bg`` masks, PoseNet one epoch (N=500), ``cli.eval_linemod
+   --mode eval`` on the predicted masks; the soak, 3 passes in each mode
+   on those roots and checkpoints. Each CLI call's launches are reset
+   before it and read after it: training launches kernels 1, 2 and 6
+   (three per step, three per PoseNet forward), ``eval_linemod`` 5 and 6,
+   ``eval_ycb`` and the soaks 6 alone, three per forward; kernel 6 (both
+   evaluations) and kernel 5 (``eval_linemod``) against their plain
+   versions on the operands of their first launch there; the card's
+   allocated bytes equal across the soak passes after the first;
 5. the same B=8 batch on the card and on the CPU, with TF32 off, must agree,
    under each of the three decoders;
    5b. one phase-1 and one phase-2 loss and gradient at B=4, dropout off,
@@ -272,6 +287,13 @@ SEG_BENCH, FAT_FRAMES = (4, 480, 640, 22), 2
 DP_STEPS, DP_SAMPLES, DP_JOIN_S = 2, 63, 600
 # [4n] export: the artifact's batch (the JAX export CLI's default)
 EXPORT_BATCH = 8
+# [4p] the deployment demos (examples/gpu_*) at full width, small depth:
+# YCB classes, (real, synthetic) training frames and keyframes; LineMOD
+# objects (eggbox 10 trains ADD-S), (training, eval) frames per object
+# (the test split keeps every tenth eval frame: one each);
+# soak passes in each mode
+DEMO_YCB_CLASSES, DEMO_YCB_FRAMES, DEMO_YCB_KEYFRAMES = 2, (14, 2), 4
+DEMO_LM_OBJECTS, DEMO_LM_FRAMES, DEMO_SOAK_PASSES = (1, 10), (8, 10), 3
 # the hand-written kernels' __global__ names, as a profiler trace shows them
 KERNEL_SYMBOLS = ("nn_kernel", "adds_remap_kernel", "paired_dist",
                   "min_partial", "phase_conv_kernel", "phase_conv_bf16_kernel")
@@ -309,10 +331,12 @@ def log(msg: str) -> None:
 
 
 def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    """The card's name and power limit (``device.card_line``; imported
+    here, after :func:`check_checkout`, for the ``examples/`` that call
+    ``chip_smoke.card_line``)."""
+    from densefusion_tpu_torch.device import card_line as line
+
+    return line()
 
 
 def cuda_ms(fn, iters: int = 100, warmup: int = 5) -> float:
@@ -1572,7 +1596,8 @@ def counted_epochs(kernels: dict):
     """Patch the port's ``Trainer`` so that every train and test epoch sets
     the launch counts of ``kernels`` to 0 just before it and reads them
     just after: yields ``{"train": [...], "test": [...]}``, one record per
-    epoch (epoch, phase, launches, seconds, the epoch's result)."""
+    epoch (epoch, phase, launches, PoseNet forwards, seconds, the epoch's
+    result)."""
     from densefusion_tpu_torch.train import loop
 
     records = {"train": [], "test": []}
@@ -1584,12 +1609,14 @@ def counted_epochs(kernels: dict):
             for k in kernels.values():
                 k.launches = 0
             t0 = time.perf_counter()
-            value = originals[kind](self)
+            with counted_forwards() as fw:
+                value = originals[kind](self)
             torch.cuda.synchronize()
             records[kind].append({
                 "epoch": self.curriculum.epoch, "phase": self._phase(),
                 "launches": {n: k.launches for n, k in kernels.items()},
-                "seconds": time.perf_counter() - t0, "value": value})
+                "forwards": fw["n"], "seconds": time.perf_counter() - t0,
+                "value": value})
             return value
         return epoch
 
@@ -3785,6 +3812,263 @@ def export_path(states, samples, lm_root: str, out: str, card: str) -> dict:
     return res
 
 
+def _example(name: str):
+    """``examples/<name>.py`` of this checkout, loaded as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"chip_smoke_{name}",
+        Path(__file__).resolve().parent / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def counted_main(kernels: dict, module, capture: tuple = ()):
+    """Patch a CLI module's ``main`` so that every call sets the launch
+    counts of ``kernels`` to 0 just before it and reads them just after,
+    with the PoseNet forwards it ran and a copy of the operands of the
+    first launch of each kernel named in ``capture``: yields a list, one
+    record per call."""
+    records, original = [], module.main
+
+    def main(*args, **kwargs):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            fw = stack.enter_context(counted_forwards())
+            kept = {n: stack.enter_context(first_inputs(kernels[n]))
+                    for n in capture}
+            value = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        records.append({
+            "launches": {n: k.launches for n, k in kernels.items()},
+            "forwards": fw["n"], "seconds": time.perf_counter() - t0,
+            "operands": {n: v[0] for n, v in kept.items() if v}})
+        return value
+
+    module.main = main
+    try:
+        yield records
+    finally:
+        module.main = original
+
+
+@contextlib.contextmanager
+def first_inputs(kernel):
+    """Keep a copy of the operands of ``kernel``'s first call while active
+    (the wrappers are called, not their ``launch``): yields a list that
+    then holds one tuple."""
+    cls, kept = type(kernel), []
+    original = cls.__call__
+
+    def call(self, *args):
+        if self is kernel and not kept:
+            kept.append(tuple(a.clone() if isinstance(a, torch.Tensor)
+                              else a for a in args))
+        return original(self, *args)
+
+    cls.__call__ = call
+    try:
+        yield kept
+    finally:
+        cls.__call__ = original
+
+
+def _held_to_plain(knn, phase_conv, operands: dict) -> dict:
+    """Kernel 6 and kernel 5 against their plain versions on the operands
+    of their first launch in one of [4p]'s evaluations: within 1e-4 of the
+    plain output's largest element, and equal (coordinates and scores)."""
+    errs = {}
+    if "phase_conv" in operands:
+        xp, pk = operands["phase_conv"]
+        got = phase_conv.phase_conv_kernel(xp, pk)
+        want = phase_conv.conv3x3_valid_plain_nchw(xp, pk)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        if got.shape != want.shape or not err <= 1e-4 * scale:
+            raise AssertionError(f"[4p] phase_conv on {tuple(xp.shape)}: "
+                                 f"{err} against max {scale}")
+        errs["phase_conv"] = {"shape": list(xp.shape), "weights":
+                              list(pk.shape), "max_abs_err": err,
+                              "rel": err / scale}
+    if "adds_remap" in operands:
+        q, r, a = (operands["adds_remap"] + (None,))[:3]
+        kc, ks = knn.adds_remap_kernel(q, r, a)
+        pc, ps = knn.adds_remap_plain(q, r, a)
+        if not (torch.equal(kc, pc) and torch.equal(ks, ps)):
+            raise AssertionError(f"[4p] adds_remap on {tuple(q.shape)} vs "
+                                 f"{tuple(r.shape)} differs from plain")
+        errs["adds_remap"] = {"shape": [list(q.shape), list(r.shape)],
+                              "max_abs_err": 0.0}
+    return errs
+
+
+def _check_demo_calls(label: str, records: list, kernels: tuple,
+                      absent: tuple = ()) -> dict:
+    """Every call launched each of ``kernels`` and none of ``absent``;
+    kernel 6 exactly three times per PoseNet forward. Returns the launches
+    summed over the calls."""
+    total = {}
+    for r in records:
+        n = r["launches"]
+        if (any(n[k] == 0 for k in kernels) or any(n[k] for k in absent)
+                or r["forwards"] == 0 or n["phase_conv"] != 3 * r["forwards"]):
+            raise AssertionError(f"[4p] {label}: launches {n} over "
+                                 f"{r['forwards']} PoseNet forwards; want "
+                                 f"{kernels} launched, {absent} not, kernel "
+                                 "6 three per forward")
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+    log(f"[4p] {label}: {len(records)} call(s), launches {total}, "
+        f"{sum(r['forwards'] for r in records)} PoseNet forwards, "
+        f"{sum(r['seconds'] for r in records):.2f} s")
+    return total
+
+
+def _soak(kernels: dict, label: str, argv: list, card: str) -> tuple:
+    """``examples/gpu_serve_soak.py`` in this process, its launches reset
+    before and read after: kernel 6 three per PoseNet forward, no other
+    kernel; the card's allocated bytes flat across the passes after the
+    first."""
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with counted_forwards() as fw:
+        summary = _example("gpu_serve_soak").main(argv)
+    torch.cuda.synchronize()
+    rec = {"launches": {n: k.launches for n, k in kernels.items()},
+           "forwards": fw["n"], "seconds": time.perf_counter() - t0}
+    launches = _check_demo_calls(f"{label} soak", [rec], ("phase_conv",),
+                                 tuple(k for k in kernels
+                                       if k != "phase_conv"))
+    allocated = summary["card_allocated_bytes_per_pass"]
+    if len(set(allocated[1:])) != 1 or summary["frames"] != \
+            DEMO_SOAK_PASSES * summary.get("eval_frames",
+                                           summary.get("keyframes")):
+        raise AssertionError(f"[4p] {label} soak: {summary}")
+    log(f"[4p] {label} soak, {DEMO_SOAK_PASSES} passes: "
+        f"{summary['sustained_frames_per_s']} frames/s, "
+        f"{summary['sustained_detections_per_s']} detections/s; RSS per pass "
+        f"{summary['rss_per_pass_mb']} MB; card allocated {allocated}, "
+        f"reserved {summary['card_reserved_bytes_per_pass']} bytes per pass; "
+        f"card {card}")
+    return summary, launches
+
+
+def demos_path(card: str, out: str) -> dict:
+    """Phase 4p: the deployment demos (``examples/gpu_*``) in this process
+    at full width and small depth (see the module docstring), each stage's
+    launches reset before it and read after it."""
+    from densefusion_tpu_torch.cli import eval_linemod, eval_ycb
+    from densefusion_tpu_torch.ops import add_dist, knn, phase_conv
+
+    t_phase = time.perf_counter()
+    kernels = {"add_dist_paired": add_dist.paired_kernel,
+               "add_dist_min": add_dist.min_kernel,
+               "adds_remap": knn.adds_remap_kernel,
+               "phase_conv": phase_conv.phase_conv_kernel}
+    train_k = ("add_dist_paired", "add_dist_min", "phase_conv")
+    result, launches = {}, {}
+
+    # YCB: generator -> cli.train -> cli.eval_ycb
+    ycb_work = os.path.join(out, "ycb")
+    n_real, n_syn = DEMO_YCB_FRAMES
+    with counted_main(kernels, eval_ycb, ("phase_conv",)) as evals, \
+            counted_epochs(kernels) as epochs:
+        ycb = _example("gpu_ycb_e2e_synthetic").main([
+            "--classes", str(DEMO_YCB_CLASSES), "--train_frames",
+            str(n_real), "--syn_frames", str(n_syn), "--test_frames",
+            str(DEMO_YCB_KEYFRAMES), "--nepoch", "1", "--root", ycb_work])
+    launches["demo_ycb_train"] = _check_demo_calls(
+        "YCB cli.train, train and test epochs",
+        epochs["train"] + epochs["test"], train_k, ("adds_remap",))
+    launches["demo_ycb_eval"] = _check_demo_calls(
+        "YCB cli.eval_ycb", evals, ("phase_conv",),
+        ("adds_remap", "add_dist_paired", "add_dist_min"))
+    if not (all(0.0 <= ycb[k] <= 100.0 for k in ("adds_auc", "add_auc",
+                                                  "adds_under_2cm"))
+            and ycb["device"] == torch.cuda.get_device_name(0)):
+        raise AssertionError(f"[4p] YCB demo: {ycb}")
+    log(f"[4p] YCB demo ({DEMO_YCB_CLASSES} classes, {n_real} + {n_syn} "
+        f"frames, {DEMO_YCB_KEYFRAMES} keyframes, N={NUM_POINTS}, {CROP} px, "
+        f"1 epoch, {ycb['checkpoint']}): ADD-S AUC {ycb['adds_auc']:.2f}, "
+        f"ADD AUC {ycb['add_auc']:.2f}, <2 cm {ycb['adds_under_2cm']:.2f}; "
+        f"generate {ycb['gen_seconds']:.2f} s, train "
+        f"{ycb['train_seconds']:.2f} s, total {ycb['total_seconds']:.2f} s; "
+        f"plots {ycb['plots']}; card {card}")
+    held = _held_to_plain(knn, phase_conv, evals[0]["operands"])
+    log(f"[4p] kernel 6 against its plain version on eval_ycb's own "
+        f"operands: {held}")
+    result["ycb"] = {k: ycb[k] for k in (
+        "checkpoint", "adds_auc", "add_auc", "adds_under_2cm", "gen_seconds",
+        "train_seconds", "total_seconds", "plots")}
+    result["ycb"]["held_to_plain"] = held
+    result["ycb"]["soak"], launches["demo_ycb_soak"] = _soak(
+        kernels, "YCB", [
+            "--dataset_root", os.path.join(ycb_work, "dataset"),
+            "--checkpoint", os.path.join(ycb_work, "trained", "ycb",
+                                         ycb["checkpoint"]),
+            "--num_obj", str(DEMO_YCB_CLASSES), "--passes",
+            str(DEMO_SOAK_PASSES)], card)
+
+    # LineMOD two-stage: generator -> train_seg -> segment -> cli.train ->
+    # eval_linemod --mode eval on the predicted masks
+    lm_work = os.path.join(out, "linemod")
+    n_train, n_test = DEMO_LM_FRAMES
+    objs = ",".join(str(o) for o in DEMO_LM_OBJECTS)
+    with counted_main(kernels, eval_linemod,
+                      ("phase_conv", "adds_remap")) as evals, \
+            counted_epochs(kernels) as epochs:
+        lm = _example("gpu_linemod_two_stage").main([
+            "--objlist", objs, "--train_frames", str(n_train),
+            "--test_frames", str(n_test), "--seg_epochs", "1",
+            "--nepoch", "1", "--root", lm_work])
+    launches["demo_lm_train"] = _check_demo_calls(
+        "LineMOD cli.train, train and test epochs",
+        epochs["train"] + epochs["test"], train_k, ("adds_remap",))
+    launches["demo_lm_eval"] = _check_demo_calls(
+        "LineMOD cli.eval_linemod --mode eval", evals,
+        ("phase_conv", "adds_remap"), ("add_dist_paired", "add_dist_min"))
+    masks = _mask_stats(os.path.join(lm_work, "dataset"), DEMO_LM_OBJECTS)
+    frames = sum(m["frames"] for m in masks.values())
+    if not (lm["predicted_masks"] == frames and lm["seg_best_epoch"]
+            and 0.0 <= lm["success_rate_0.1d"] <= 1.0
+            and sorted(o["obj"] for o in lm["eval"]["per_object"])
+            == sorted(DEMO_LM_OBJECTS)):
+        raise AssertionError(f"[4p] LineMOD two-stage demo: {lm}")
+    held = _held_to_plain(knn, phase_conv, evals[0]["operands"])
+    seg = lm["seg_best_epoch"]
+    log(f"[4p] LineMOD two-stage demo (objects {objs}, {n_train} + {n_test} "
+        f"frames each, SegNet 480x640 1 epoch: pixel acc "
+        f"{seg['pixel_acc']:.4f}, fg IoU {seg['fg_iou']:.4f}; masks (non-"
+        f"empty, frames, IoU) "
+        f"{ {o: (m['nonempty'], m['frames'], round(m['iou'], 4)) for o, m in masks.items()} }"
+        f"; pose 1 epoch, {lm['checkpoint']}, --iterations "
+        f"{lm['eval']['iterations']}): success {lm['success_rate_0.1d']:.4f}"
+        f", lost {lm['eval']['lost_detections']}; seg {lm['seg_seconds']:.2f}"
+        f" s, masks {lm['mask_seconds']:.2f} s, pose {lm['pose_seconds']:.2f}"
+        f" s, total {lm['total_seconds']:.2f} s; card {card}")
+    log(f"[4p] kernels 5 and 6 against their plain versions on "
+        f"eval_linemod's own operands: {held}")
+    result["linemod"] = {k: lm[k] for k in (
+        "checkpoint", "predicted_masks", "seg_best_epoch",
+        "success_rate_0.1d", "eval", "seg_seconds", "mask_seconds",
+        "pose_seconds", "total_seconds")}
+    result["linemod"].update(masks=masks, held_to_plain=held)
+    result["linemod"]["soak"], launches["demo_lm_soak"] = _soak(
+        kernels, "LineMOD", [
+            "--dataset_root", os.path.join(lm_work, "dataset"),
+            "--format", "linemod", "--objlist", objs,
+            "--checkpoint", os.path.join(lm_work, "trained", "linemod",
+                                         lm["checkpoint"]),
+            "--num_points", "500", "--passes", str(DEMO_SOAK_PASSES)], card)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"[4p] deployment demos: {result['seconds']:.1f} s")
+    return result, launches
+
+
 def cpu_agreement(est_gpu, est_cpu, samples) -> dict:
     """Phase 5: one B=8 batch through the card and the CPU. The raw
     hypotheses agree to atol 1e-4; the refined poses agree to atol 1e-4
@@ -4181,6 +4465,15 @@ def run() -> None:
                            export_dir, card)
     path_launches["export_f32"] = exported["f32"]["launches"]
     path_launches["export_bf16"] = exported["bf16"]["launches"]
+
+    # 4p. the deployment demos in this process: YCB (generator -> train ->
+    # eval_ycb), the LineMOD two stages (SegNet -> masks -> PoseNet ->
+    # eval_linemod --mode eval) and the serving soak in each mode (launch
+    # counts reset before each stage, read after it)
+    demos_dir = tempfile.mkdtemp(prefix="chip_smoke_demos_")
+    atexit.register(shutil.rmtree, demos_dir, True)
+    demos, demo_launches = demos_path(card, demos_dir)
+    path_launches.update(demo_launches)
 
     # 5. card vs CPU, TF32 off
     est_cpu = seeded_estimator(None, states, device="cpu")[0]
@@ -4612,7 +4905,7 @@ def run() -> None:
                "serving_cpu_agreement": agree,
                "bf16_serving": bf16_serve, "bf16_training": bf16_train,
                "bf16_cli": bf16_cli, "data_parallel": dp,
-               "export": exported,
+               "export": exported, "demos": demos,
                "train_cpu_agreement": train_agree, "card": card}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"kernels": kernels}))

@@ -283,7 +283,10 @@ class BatchLoader:
                        epoch: int) -> Iterator:
         """Stream one epoch through the fork-worker sample ring: tasks are
         issued in order as slots free up; batches are yielded strictly in
-        order once all their samples have landed in the slab."""
+        order once all their samples have landed in the slab. An epoch
+        without batches (an empty split) starts no workers."""
+        if not batches:
+            return
         pool = self._ensure_pool()
         tasks = [(b, j, int(i)) for b, idx in enumerate(batches)
                  for j, i in enumerate(idx)]

@@ -40,3 +40,24 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def run_record(dev: torch.device, dtype: str = "float32") -> dict:
+    """What a measurement is kept beside: the device, the card's name and
+    power limit (None on the CPU), the float32 policy and the compute
+    type."""
+    cuda = torch.device(dev).type == "cuda"
+    return {"device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+            "card": card_line() if cuda else None,
+            "precision": precision_policy(), "dtype": dtype}

@@ -12,7 +12,7 @@ given ``--cpu``::
         --steps 28000 --refine_steps 8000 --batch 8 --test_frames 40
 
 Prints one JSON object (the JAX example's keys, plus the device, the
-card's name and power limit, and the float32 policy).
+card's name and power limit, the float32 policy and the compute type).
 """
 
 from __future__ import annotations
@@ -20,20 +20,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-
-
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def main():
@@ -63,13 +55,12 @@ def main():
     args = p.parse_args()
 
     import numpy as np
-    import torch
 
     from densefusion_tpu_torch.data import (
         BatchLoader, LineModDataset, generate_linemod_style_dataset,
         to_device,
     )
-    from densefusion_tpu_torch.device import precision_policy, resolve_device
+    from densefusion_tpu_torch.device import resolve_device, run_record
     from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
     from densefusion_tpu_torch.train import (
         create_train_state, make_eval_step, make_pose_train_step,
@@ -178,10 +169,7 @@ def main():
         "refined": refine_result,
         "seconds": time.time() - t0,
         "generate_seconds": t_gen,
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
-        "card": _card() if dev.type == "cuda" else None,
-        "precision": precision_policy(),
+        **run_record(dev),
     }
     print(json.dumps(result, indent=2))
     if args.out:

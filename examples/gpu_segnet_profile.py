@@ -17,7 +17,6 @@ convolution.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -27,13 +26,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-
-
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
 
 
 def _events_ms(fn, iters: int) -> float:
@@ -156,7 +148,9 @@ def main(out_path: str | None = None) -> dict:
         net.train()
         net(rgb)
 
-    out = {"card": _card(), "shape": [b, h, w, classes]}
+    from densefusion_tpu_torch.device import card_line
+
+    out = {"card": card_line(), "shape": [b, h, w, classes]}
     for autotune in (False, True, False, True):
         torch.backends.cudnn.benchmark = autotune
         key = "autotuned" if autotune else "heuristic"

@@ -128,6 +128,31 @@ def test_start_batch_resumes_the_epoch(ycb_ds, mode):
         loader.close()
 
 
+class _Empty:
+    """A split without samples (a LineMOD test list holding no tenth
+    frame)."""
+
+    def __len__(self):
+        return 0
+
+    def __getitem__(self, i):
+        raise IndexError(i)
+
+
+@pytest.mark.parametrize("mode,workers", [("thread", 1), ("thread", 2),
+                                          ("process", 2)])
+def test_empty_split_gives_an_empty_epoch(mode, workers):
+    """An epoch of an empty split yields no batch in every worker mode; the
+    fork ring starts no workers for it."""
+    loader = BatchLoader(_Empty(), 4, shuffle=False, drop_last=False,
+                         num_workers=workers, worker_mode=mode)
+    try:
+        assert _epoch(loader, 0) == []
+        assert loader._pool is None
+    finally:
+        loader.close()
+
+
 def test_abandoned_epoch_leaves_the_ring_clean(ycb_ds):
     proc = BatchLoader(ycb_ds, 4, num_workers=2, seed=1,
                        worker_mode="process")
