@@ -64,7 +64,10 @@ prints their keys together.
 
 ``--trace_dir DIR`` wraps the benchmarked region in a ``torch.profiler``
 trace (``utils/profiling.py`` ``trace_context``) written into DIR, as the
-JAX CLI's ``--trace_dir`` wraps it in ``jax.profiler``'s.
+JAX CLI's ``--trace_dir`` wraps it in ``jax.profiler``'s. The port's spans
+of the region (serving, pipeline, model and train-step boundaries) show
+in it as ranges and are kept in memory (``utils/profiling.py`` ``spans``)
+while it runs.
 """
 
 from __future__ import annotations

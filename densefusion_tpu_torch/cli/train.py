@@ -12,7 +12,10 @@ Runs on the card unless given ``--device cpu``. Checkpoints go to
 package's format. ``--bf16`` trains with bf16 compute (float32 parameters,
 Adam state and checkpoints) and ``--remat_cnn`` recomputes the CNN in the
 backward pass. ``--trace_dir`` writes a ``torch.profiler`` trace of the
-run (``utils/profiling.py`` ``trace_context``).
+run (``utils/profiling.py`` ``trace_context``); the port's spans
+(``train.step`` and its forward, loss, backward and optimizer, the
+model's ``posenet.cnn`` and ``posenet.fusion``) show in it as ranges and
+are kept in memory (``utils/profiling.py`` ``spans``) while it runs.
 
 ``--data_parallel`` runs one rank per process, started by a launcher that
 sets ``WORLD_SIZE`` / ``RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT`` (NCCL on

@@ -13,6 +13,7 @@ import torch
 
 from densefusion_tpu_torch.geometry import quat_to_matrix
 from densefusion_tpu_torch.ops import adds_remap_targets
+from densefusion_tpu_torch.utils.profiling import span
 
 
 def add_distance(pred_points: torch.Tensor,
@@ -54,6 +55,7 @@ def translation_error(t_est: torch.Tensor, t_gt: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(t_gt - t_est, dim=-1)
 
 
+@span("eval.pose_distances")
 def pose_distances(model_points: torch.Tensor, quat: torch.Tensor,
                    trans: torch.Tensor, target: torch.Tensor,
                    sym: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,7 @@ from densefusion_tpu_torch.device import resolve_device
 from densefusion_tpu_torch.geometry import (
     quat_normalize, quat_to_matrix, quat_multiply, quat_rotate,
 )
+from densefusion_tpu_torch.utils.profiling import span
 
 
 class InferencePipeline:
@@ -46,8 +47,11 @@ class InferencePipeline:
     def __call__(self, img, points, choose, obj):
         """img (B, H, W, 3), points (B, N, 3), choose (B, N), obj (B,):
         numpy arrays or tensors, moved to the pipeline's device."""
-        return self._infer(*pipeline_inputs(img, points, choose, obj,
-                                            self.device))
+        with span("pipeline.run", units=len(obj)):
+            with span("pipeline.inputs"):
+                inputs = pipeline_inputs(img, points, choose, obj,
+                                         self.device)
+            return self._infer(*inputs)
 
     def _infer(self, img, points, choose, obj):
         """The pure program on tensors already on the pipeline's device (the
@@ -65,13 +69,15 @@ class InferencePipeline:
 
         q, t = q0, t0
         for _ in range(self.refine_iters):
-            # canonicalize the cloud into the current pose frame:
-            # p' = (p - t) @ R == R^T (p - t)
-            new_points = (points - t[:, None, :]) @ quat_to_matrix(q)
-            res = self.refiner(new_points, out["emb"], obj)
-            q2 = quat_normalize(res["pred_r"])
-            # pose composition T <- T @ T2
-            q, t = quat_multiply(q, q2), quat_rotate(q, res["pred_t"]) + t
+            with span("pipeline.refine"):
+                # canonicalize the cloud into the current pose frame:
+                # p' = (p - t) @ R == R^T (p - t)
+                new_points = (points - t[:, None, :]) @ quat_to_matrix(q)
+                res = self.refiner(new_points, out["emb"], obj)
+                q2 = quat_normalize(res["pred_r"])
+                # pose composition T <- T @ T2
+                q, t = quat_multiply(q, q2), \
+                    quat_rotate(q, res["pred_t"]) + t
         if self.return_unrefined:
             return q0, t0, q, t, best_conf
         return q, t, best_conf

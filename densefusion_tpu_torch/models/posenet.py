@@ -25,6 +25,7 @@ from torch import nn
 
 from densefusion_tpu_torch.models.layers import cast, linear
 from densefusion_tpu_torch.models.pspnet import PSPNet
+from densefusion_tpu_torch.utils.profiling import span
 
 HEAD_WIDTHS = (640, 256, 128)
 
@@ -187,18 +188,20 @@ class PoseNet(nn.Module):
                 batch_rows=None):
         choose = choose.long()
         sample_at = choose if self.sparse_emb else None
-        if self.remat_cnn and torch.is_grad_enabled():
-            emb = checkpointed(functools.partial(self._cnn,
-                                                 batch_rows=batch_rows),
-                               generator, img, sample_at)
-        else:
-            emb = self._cnn(img, sample_at, generator, batch_rows)
-        if not self.sparse_emb:   # (B, H, W, d) map -> (B, N, d) at choose
-            b, h, w, d = emb.shape
-            emb = torch.gather(emb.reshape(b, h * w, d), 1,
-                               choose[..., None].expand(-1, -1, d))
-        feat = self.feat(points, emb)
-        pred_r, pred_t, c = self._heads(feat, obj.long())
+        with span("posenet.cnn"):
+            if self.remat_cnn and torch.is_grad_enabled():
+                emb = checkpointed(functools.partial(self._cnn,
+                                                     batch_rows=batch_rows),
+                                   generator, img, sample_at)
+            else:
+                emb = self._cnn(img, sample_at, generator, batch_rows)
+            if not self.sparse_emb:   # (B, H, W, d) map -> (B, N, d)
+                b, h, w, d = emb.shape
+                emb = torch.gather(emb.reshape(b, h * w, d), 1,
+                                   choose[..., None].expand(-1, -1, d))
+        with span("posenet.fusion"):
+            feat = self.feat(points, emb)
+            pred_r, pred_t, c = self._heads(feat, obj.long())
         logit = c[..., 0].float()
         return {"pred_r": pred_r.float(), "pred_t": pred_t.float(),
                 "pred_c": torch.sigmoid(logit), "pred_c_logit": logit,

@@ -39,6 +39,7 @@ from densefusion_tpu_torch.data.schema import PoseSample, collate
 from densefusion_tpu_torch.eval.pipeline import InferencePipeline
 from densefusion_tpu_torch.geometry.bbox import bbox_from_mask
 from densefusion_tpu_torch.geometry.camera import CameraIntrinsics
+from densefusion_tpu_torch.utils.profiling import span
 
 
 class PoseEstimator:
@@ -141,19 +142,22 @@ class PoseEstimator:
         gets the whole batch's poses."""
         samples = list(samples)
         n = len(samples)
-        sh = self.sharding
-        if sh is not None:
-            pad = PoseSample.invalid(self.num_points,
-                                     samples[0].model_points.shape[0],
-                                     self.crop_size)
-            samples += [pad] * (-n % sh.size)
-        batch = collate(samples)
-        rows = batch if sh is None else PoseSample(
-            *(x[sh.slice(len(samples))] for x in batch))
-        out = self.pipeline(rows.img, rows.points, rows.choose, rows.obj_idx)
-        if sh is not None:
-            out = tuple(_gather_rows(x, sh) for x in out)
-        quat, trans, conf = (x[:n].cpu().numpy() for x in out)
+        with span("serve.request", units=n):
+            sh = self.sharding
+            if sh is not None:
+                pad = PoseSample.invalid(self.num_points,
+                                         samples[0].model_points.shape[0],
+                                         self.crop_size)
+                samples += [pad] * (-n % sh.size)
+            with span("serve.collate"):
+                batch = collate(samples)
+            rows = batch if sh is None else PoseSample(
+                *(x[sh.slice(len(samples))] for x in batch))
+            out = self.pipeline(rows.img, rows.points, rows.choose,
+                                rows.obj_idx)
+            if sh is not None:
+                out = tuple(_gather_rows(x, sh) for x in out)
+            quat, trans, conf = (x[:n].cpu().numpy() for x in out)
         return quat, trans, conf, np.asarray(batch.valid)[:n]
 
     def estimate(self, rgb, depth, mask, obj_idx, intrinsics,

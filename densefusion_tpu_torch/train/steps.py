@@ -41,6 +41,7 @@ from densefusion_tpu_torch.parallel.sharding import BatchSharding
 from densefusion_tpu_torch.train.state import (
     GradAccum, TrainState, make_optimizer,
 )
+from densefusion_tpu_torch.utils.profiling import span
 
 
 def _unpack(batch):
@@ -138,21 +139,28 @@ def make_pose_train_step(state: TrainState, use_adds: bool = True,
     optimizer = _reset_optimizer(state, state.posenet, grad_accum)
 
     def step(batch, w):
-        img, points, choose, obj, target, model_points, sym, valid = \
-            _unpack(batch)
-        whole = _GlobalBatch(sharding, valid)
-        state.posenet.train()
-        out = state.posenet(img, points, choose, obj,
-                            generator=state.generator, batch_rows=whole.rows)
-        lo = pose_loss(out["pred_r"], out["pred_t"], out["pred_c"], target,
-                       model_points, points, sym, w, use_adds=use_adds,
-                       sample_weight=valid, pred_c_logit=out["pred_c_logit"])
-        loss = whole.loss(lo.loss)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        _apply(state, optimizer, sharding)
-        state.step += 1
-        return whole.metrics(loss, lo.dis, valid)
+        with span("train.step", units=batch.img.shape[0]):
+            img, points, choose, obj, target, model_points, sym, valid = \
+                _unpack(batch)
+            whole = _GlobalBatch(sharding, valid)
+            state.posenet.train()
+            with span("train.forward"):
+                out = state.posenet(img, points, choose, obj,
+                                    generator=state.generator,
+                                    batch_rows=whole.rows)
+            with span("train.loss"):
+                lo = pose_loss(out["pred_r"], out["pred_t"], out["pred_c"],
+                               target, model_points, points, sym, w,
+                               use_adds=use_adds, sample_weight=valid,
+                               pred_c_logit=out["pred_c_logit"])
+                loss = whole.loss(lo.loss)
+            optimizer.zero_grad(set_to_none=True)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                _apply(state, optimizer, sharding)
+            state.step += 1
+            return whole.metrics(loss, lo.dis, valid)
 
     return step
 

@@ -4,7 +4,7 @@ from densefusion_tpu_torch.utils.config import (
     RunConfig, DATASET_PRESETS, check_ported,
 )
 from densefusion_tpu_torch.utils.logging import setup_logger, MetricsWriter
-from densefusion_tpu_torch.utils.profiling import StepTimer, trace_context
+from densefusion_tpu_torch.utils.profiling import trace_context
 
 __all__ = ["RunConfig", "DATASET_PRESETS", "check_ported", "setup_logger",
-           "MetricsWriter", "StepTimer", "trace_context"]
+           "MetricsWriter", "trace_context"]
