@@ -94,7 +94,9 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    """(w, -x, -y, -z): the vector part negated on the device, with no
+    host table to copy (the values of ``q * [1, -1, -1, -1]``)."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

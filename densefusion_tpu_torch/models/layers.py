@@ -12,10 +12,13 @@ input leaves every cast a no-op.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 
 from densefusion_tpu_torch.ops.phase_conv import (
     conv3x3_valid_nchw, replicate_pad,
@@ -27,6 +30,48 @@ from densefusion_tpu_torch.ops.phase_conv import (
 # 0.25 x[k-1] + 0.75 x[k]; odd y = 2k+1: 0.75 x[k] + 0.25 x[k+1].
 UPSAMPLE_TAPS_EVEN = ((0.75, 0.25, 0.0), (0.25, 0.75, 0.0), (0.0, 0.75, 0.25))
 UPSAMPLE_TAPS_ODD = ((0.25, 0.75, 0.0), (0.0, 0.75, 0.25), (0.0, 0.25, 0.75))
+
+
+@functools.lru_cache(maxsize=None)
+def device_table(build, args: tuple, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """``build(*args)`` as a ``dtype`` tensor on ``device``, built at the
+    first call of a key and returned from the cache after it;
+    ``device_table.cache_info()`` counts the hits and the misses.
+
+    The keys are few and the tables small: the PSP priors' and the
+    decoder's sizes follow the crops, which ``geometry/bbox.py``
+    ``BORDER_LADDER`` snaps to 17 sizes a side, so nothing is evicted. A
+    table is built outside inference mode, so a forward that records
+    gradients can save it for its backward."""
+    with torch.inference_mode(False):
+        return torch.tensor(build(*args), dtype=dtype, device=device)
+
+
+def table(like: torch.Tensor, build, *args) -> torch.Tensor:
+    """``like.new_tensor(build(*args))``, the same values in ``like``'s
+    type on its device, from :func:`device_table`. A copy from host memory
+    to CUDA waits for the stream to drain, so a forward that made its
+    tables at each call stopped the host at each one; a warm forward takes
+    them from the cache and issues no copy and no sync.
+
+    While ``torch.compile`` or ``torch.export`` traces, or for a fake
+    tensor, the table is built in the trace, as without the cache, and
+    nothing is stored or counted."""
+    if torch.compiler.is_compiling() or is_fake(like):
+        return like.new_tensor(build(*args))
+    return device_table(build, args, like.dtype, like.device)
+
+
+def _upsample_taps():
+    return (UPSAMPLE_TAPS_EVEN, UPSAMPLE_TAPS_ODD)
+
+
+def upsample_taps(like: torch.Tensor) -> torch.Tensor:
+    """The (2 parities, 3 taps, 3 sources) tables ``UPSAMPLE_TAPS_EVEN``
+    and ``UPSAMPLE_TAPS_ODD`` in ``like``'s type, on its device
+    (:func:`table`)."""
+    return table(like, _upsample_taps)
 
 
 def cast(t: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
@@ -117,8 +162,8 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
     if (h, w) == tuple(out_hw):
         return x
     weights = _align_corners_matrix if align_corners else _resize_weights
-    mh = x.new_tensor(weights(h, out_hw[0]))
-    mw = x.new_tensor(weights(w, out_hw[1]))
+    mh = table(x, weights, h, out_hw[0])
+    mw = table(x, weights, w, out_hw[1])
     return torch.einsum("oh,...hw,pw->...op", mh, x, mw)
 
 
@@ -131,7 +176,7 @@ def phase_conv_weight(weight: torch.Tensor) -> torch.Tensor:
     composes it (``densefusion_tpu/models/layers.py:99-104``), in its
     order: the rows' taps (t) first, each contraction rounded to the type,
     then the columns' (u)."""
-    m = weight.new_tensor([UPSAMPLE_TAPS_EVEN, UPSAMPLE_TAPS_ODD])
+    m = upsample_taps(weight)
     cout, cin = weight.shape[:2]
     rows = torch.einsum("pti,dctu->dcupi", m, weight)
     pk = torch.einsum("dcupi,quj->ijcpqd", rows, m)

@@ -29,9 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from densefusion_tpu_torch.models.layers import (
-    UPSAMPLE_TAPS_EVEN, UPSAMPLE_TAPS_ODD, Dropout2d, cast, conv2d, linear,
-    prelu, adaptive_avg_pool2d, resize_bilinear, phase_conv_phases,
-    phase_upsample_conv3x3,
+    Dropout2d, cast, conv2d, linear, prelu, adaptive_avg_pool2d,
+    resize_bilinear, phase_conv_phases, phase_upsample_conv3x3,
+    upsample_taps,
 )
 from densefusion_tpu_torch.models.resnet import DilatedResNet
 
@@ -125,8 +125,7 @@ def sparse_upsample_taps(x: torch.Tensor, rows: torch.Tensor,
     pr = (rows // 2)[..., None].add(d).clamp(0, h - 1)           # (B, N, 3)
     pc = (cols // 2)[..., None].add(d).clamp(0, w - 1)
     patch = _gather_patches(x, pr, pc)
-    w_even = x.new_tensor(UPSAMPLE_TAPS_EVEN)
-    w_odd = x.new_tensor(UPSAMPLE_TAPS_ODD)
+    w_even, w_odd = upsample_taps(x)
     wr = torch.where((rows % 2 == 1)[..., None, None], w_odd, w_even)
     wc = torch.where((cols % 2 == 1)[..., None, None], w_odd, w_even)
     if border == "zero":

@@ -463,3 +463,71 @@ def test_registered_op_launches_the_kernel_and_exports(dtype):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert torch.equal(out, Stage()(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["forward_f32", "pipeline_k4", "train_p1",
+                                  "forward_bf16", "forward_dense"])
+def test_model_step_issues_no_sync(case):
+    """After one warm-up call, a PoseNet forward (float32 eval, bf16, the
+    dense decoder), ``InferencePipeline._infer`` with K=4 refiner
+    iterations on device tensors, and two phase-1 steps of
+    ``make_pose_train_step(use_adds=True)`` on a device batch with
+    symmetric rows run under ``torch.cuda.set_sync_debug_mode("error")``:
+    none of them waits for the stream. The model step takes its constant
+    tables from its cache (``layers.device_table``: hits only after the
+    warm-up);
+    a table copied from the host at each call would raise here."""
+    from densefusion_tpu_torch.data import to_device
+    from densefusion_tpu_torch.eval import InferencePipeline
+    from densefusion_tpu_torch.models import PoseNet, PoseRefineNet, layers
+    from densefusion_tpu_torch.train import (
+        create_train_state, make_pose_train_step,
+    )
+
+    dev = _cuda()
+    b = 4
+    batch = to_device(_dp_batch(np.random.default_rng(6), b=b, n=64, m=64,
+                                crop=64, num_obj=3)._replace(
+        sym=np.arange(b) % 2 == 0, valid=np.ones(b, bool)), dev)
+    inputs = (batch.img, batch.points, batch.choose.long(),
+              batch.obj_idx.long())
+    if case == "train_p1":
+        state = create_train_state(PoseNet(3), PoseRefineNet(3), 1e-4, 0,
+                                   dev)
+        step = make_pose_train_step(state, use_adds=True)
+        calls = 2
+
+        def run():
+            return step(batch, 0.015)["loss"]
+    else:
+        calls = 1
+        kw = {"forward_bf16": {"dtype": torch.bfloat16},
+              "forward_dense": {"fused_decoder": False}}.get(case, {})
+        net = PoseNet(3, **kw).to(dev).eval()
+        if case == "pipeline_k4":
+            pipe = InferencePipeline(net, PoseRefineNet(3), refine_iters=4,
+                                     device=dev)
+
+            def run():
+                with torch.no_grad():
+                    return pipe._infer(*inputs)[0]
+        else:
+            def run():
+                with torch.no_grad():
+                    return net(*inputs)["pred_r"]
+    run()                                     # warm-up: the tables' misses
+    torch.cuda.synchronize()
+    info = layers.device_table.cache_info
+    misses, hits = info().misses, info().hits
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(calls):
+            outs.append(run())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert info().misses == misses
+    assert info().hits > hits
+    assert all(bool(torch.isfinite(o).all()) for o in outs)

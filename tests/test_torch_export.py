@@ -40,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
-from torch._subclasses.fake_tensor import FakeTensorMode
+from torch._subclasses.fake_tensor import FakeTensorMode, is_fake
 
 from densefusion_tpu import export as jexport
 from densefusion_tpu.cli import export_stablehlo as j_export_cli
@@ -269,6 +269,26 @@ def test_bf16_artifact_equals_the_live_bf16_pipeline(ckpt, inputs):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         assert torch.equal(g, w)
+
+
+def test_eager_export_eager_keeps_the_tables_real(ckpt, inputs):
+    """The model step's table cache across an export: the eager pipeline
+    before and after ``export_inference`` gives the same poses bit for bit,
+    the trace built its tables in the graph (no table stored or counted),
+    and the stored tables are real tensors."""
+    info = layers.device_table.cache_info
+    live = _live(ckpt)
+    before = live(*inputs)
+    counts = info()
+    export.export_inference(ckpt, batch=B, device="cpu")
+    assert info() == counts
+    after = live(*inputs)
+    assert info().misses == counts.misses and info().hits > counts.hits
+    for a, b in zip(before, after):
+        assert torch.equal(a, b)
+    taps = layers.upsample_taps(torch.zeros(1))          # a stored table
+    assert info().misses == counts.misses and counts.currsize > 0
+    assert type(taps) is torch.Tensor and not is_fake(taps)
 
 
 def test_artifact_refuses_another_device_and_batch(blob, inputs,
