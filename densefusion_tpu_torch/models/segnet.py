@@ -32,6 +32,7 @@ from torch import nn
 
 from densefusion_tpu_torch.models.init import he_normal_fan_out_
 from densefusion_tpu_torch.models.layers import max_pool_argmax, max_unpool
+from densefusion_tpu_torch.utils.profiling import span
 
 ENC_STAGES = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512),
               (512, 512, 512))
@@ -130,16 +131,18 @@ class SegNet(nn.Module):
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         indices = []
-        for names in self.enc_layers:
-            for name in names:
-                x = self._block(name, x)
-            x, idx = max_pool_argmax(x)
-            indices.append(idx)
-        for s, names in enumerate(self.dec_layers):
-            x = max_unpool(x, indices[-(s + 1)])
-            for name in names:
-                x = self._block(name, x)
-        return self.conv11d(x)
+        with span("segnet.encoder"):
+            for names in self.enc_layers:
+                for name in names:
+                    x = self._block(name, x)
+                x, idx = max_pool_argmax(x)
+                indices.append(idx)
+        with span("segnet.decoder"):
+            for s, names in enumerate(self.dec_layers):
+                x = max_unpool(x, indices[-(s + 1)])
+                for name in names:
+                    x = self._block(name, x)
+            return self.conv11d(x)
 
 
 def init_segnet_(model: SegNet, generator: torch.Generator) -> None:

@@ -32,6 +32,7 @@ from densefusion_tpu_torch.losses.seg_loss import segmentation_loss
 from densefusion_tpu_torch.models.segnet import SegNet, init_segnet_
 from densefusion_tpu_torch.train import msgpack
 from densefusion_tpu_torch.train.state import make_optimizer
+from densefusion_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -69,14 +70,20 @@ def make_seg_train_step(state: SegTrainState,
     segnet, opt = state.segnet, state.optimizer
 
     def step(rgb: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
-        segnet.train()
-        opt.zero_grad(set_to_none=True)
-        loss = segmentation_loss(segnet(rgb), label,
-                                 _fg_weights(label, fg_weight))
-        loss.backward()
-        opt.step()
-        state.step += 1
-        return loss.detach()
+        with span("seg.step", units=rgb.shape[0]):
+            segnet.train()
+            opt.zero_grad(set_to_none=True)
+            with span("seg.forward"):
+                logits = segnet(rgb)
+            with span("seg.loss"):
+                loss = segmentation_loss(logits, label,
+                                         _fg_weights(label, fg_weight))
+            with span("seg.backward"):
+                loss.backward()
+            with span("seg.optimizer"):
+                opt.step()
+            state.step += 1
+            return loss.detach()
 
     return step
 

@@ -8,8 +8,8 @@
   and as decorators; the buffer keeps the latest ``SPAN_CAPACITY``;
 * each span's host interval is within 100 µs of the profiler event its
   ``record_function`` range emitted (the shared clock);
-* one ``estimate_batch``, one ``InferencePipeline`` call and one phase-1
-  step record exactly their trees of spans;
+* one ``estimate_batch``, one ``InferencePipeline`` call, one phase-1
+  step and one SegNet step record exactly their trees of spans;
 * ``export_inference`` under a session records no span and its graph
   holds no profiler op.
 """
@@ -24,8 +24,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from densefusion_tpu_torch import export
 from densefusion_tpu_torch.data import PoseSample, to_device
-from densefusion_tpu_torch.models import PoseNet, PoseRefineNet
+from densefusion_tpu_torch.models import PoseNet, PoseRefineNet, SegNet
 from densefusion_tpu_torch.serve import PoseEstimator
+from densefusion_tpu_torch.train.seg import (
+    create_seg_train_state, make_seg_train_step,
+)
 from densefusion_tpu_torch.train.state import TrainState, make_optimizer
 from densefusion_tpu_torch.train.steps import make_pose_train_step
 from densefusion_tpu_torch.utils import profiling
@@ -250,6 +253,30 @@ def test_a_phase1_step_records_its_tree(nets):
         ("train.loss", "train.step", None),
         ("train.backward", "train.step", None),
         ("train.optimizer", "train.step", None)])
+
+
+def test_a_seg_step_records_its_tree():
+    enc = ((4, 4), (8, 8), (8, 8, 8), (8, 8, 8), (8, 8, 8))
+    dec = ((8, 8, 8), (8, 8, 8), (8, 8, 8), (8, 4), (4,))
+    state = create_seg_train_state(SegNet(5, enc, dec), device="cpu")
+    step = make_seg_train_step(state)
+    g = torch.Generator().manual_seed(0)
+    rgb = torch.randn(B, 3, 32, 64, generator=g)
+    label = torch.randint(0, 5, (B, 32, 64), generator=g)
+    with cpu_session():
+        loss = step(rgb, label)
+    assert torch.isfinite(loss) and state.step == 1
+    assert tree(spans()) == sorted([
+        ("seg.step", None, B), ("seg.forward", "seg.step", None),
+        ("segnet.encoder", "seg.forward", None),
+        ("segnet.decoder", "seg.forward", None),
+        ("seg.loss", "seg.step", None),
+        ("seg.backward", "seg.step", None),
+        ("seg.optimizer", "seg.step", None)])
+    assert len({r["request"] for r in spans()}) == 1
+    clear_spans()
+    step(rgb, label)        # no session: nothing recorded
+    assert spans() == []
 
 
 def test_export_under_a_session_holds_no_profiler_op(tmp_path):
