@@ -12,23 +12,41 @@ descending ``j``, and the classifier ``conv11d``; so a reference
 ``state_dict`` loads as it is, and :mod:`densefusion_tpu_torch.compat`
 carries the JAX package's variables across.
 
-On the card its forward convolutions run through ATen's own float32
-convolution (im2col and a cuBLAS GEMM), not cuDNN: with TF32 off, cuDNN's
-heuristic takes an FFT algorithm for ``conv31d`` (256 -> 128 channels at
-120x160) that costs 423 ms of a ~470 ms B=4 forward at 480x640, and its
-autotuner keeps it; ATen's takes that layer in 1.8 ms and the forward's
-26 convolutions in ~63 ms. Autograd picks the backward's route when it
-runs it, with cuDNN on (``examples/gpu_segnet_profile.py``, NVIDIA H100).
+Every convolution is :class:`Conv3x3` (3x3, stride 1, padding 1), whose
+forward and backward take routes of their own on the card, all float32
+with TF32 off:
+
+* **forward**: ATen's own convolution (im2col and a cuBLAS GEMM), not
+  cuDNN: with TF32 off, cuDNN's heuristic takes an FFT algorithm for
+  ``conv31d`` (256 -> 128 channels at 120x160) that costs 423 ms of a
+  ~470 ms B=4 forward at 480x640, and its autotuner keeps it; ATen's takes
+  that layer in 1.8 ms and the forward's 26 convolutions in ~63 ms;
+* **backward**: the input's gradient (dgrad) and the weight's (wgrad) each
+  by a route that :func:`backward_route` picks from the layer's shape,
+  cuDNN's flags set around the one call that uses them. dgrad is the
+  forward convolution of the output's gradient with the flipped,
+  transposed weights, through cuDNN's implicit GEMM, except on small maps
+  (cuDNN's own dgrad) and where the layer widens (its flipped forward
+  narrows, the shape whose cuDNN forward is an FFT: ATen's im2col + GEMM);
+  wgrad is cuDNN's, on channels-last tensors for narrow outputs. Left to
+  autograd with cuDNN on, the backward took cuDNN's TF32-off heuristic
+  picks: FFT dgrads, its legacy direct dgrad and small-tile implicit GEMMs
+  (``examples/gpu_segnet_profile.py --backward``, NVIDIA H100).
+
+On the CPU and in other types than float32 the backward is autograd's,
+bit for bit; :func:`backward_routes` counts the routes taken.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from densefusion_tpu_torch.models.init import he_normal_fan_out_
 from densefusion_tpu_torch.models.layers import max_pool_argmax, max_unpool
@@ -38,6 +56,121 @@ ENC_STAGES = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512),
               (512, 512, 512))
 DEC_STAGES = ((512, 512, 512), (512, 512, 256), (256, 256, 128), (128, 64),
               (64,))
+
+
+_ROUTES: collections.Counter = collections.Counter()
+
+# 3x3, stride 1, padding 1: convolution_backward's geometry arguments
+_GEOMETRY = ([1, 1], [1, 1], [1, 1], False, [0, 0], 1)
+
+
+def backward_routes() -> collections.Counter:
+    """``(grad, route) -> calls`` of :class:`Conv3x3`'s backward in this
+    process, ``grad`` one of ``"dgrad"`` / ``"wgrad"``: a copy."""
+    return collections.Counter(_ROUTES)
+
+
+def backward_route(x: torch.Tensor, w: torch.Tensor) -> tuple[str, str]:
+    """``(dgrad route, wgrad route)`` of a conv of the map ``x`` (B, Cin, H,
+    W) with the weights ``w`` (Cout, Cin, 3, 3); ``("autograd",
+    "autograd")`` outside float32 on CUDA.
+
+    The rule follows the per-layer table of
+    ``examples/gpu_segnet_profile.py --backward`` (SegNet at B=3, 480x640,
+    NVIDIA H100, TF32 off): dgrad by cuDNN's implicit-GEMM forward of the
+    flipped weights ran at 36-40 TFLOP/s where cuDNN's own dgrad took an
+    FFT, its legacy direct engine or 32x32-tile kernels; below 8192 output
+    columns (B·H·W) cuDNN's dgrad fills the card better; where the layer
+    widens, the flipped forward narrows its channels, and cuDNN's forward
+    heuristic takes an FFT there that cost 285-350 ms (ATen's im2col + GEMM:
+    1.4 ms). cuDNN's wgrad (Winograd) was the fastest at every width but
+    the narrow classifier, where its NCHW route runs 32x32-tile GEMMs and
+    channels-last ran 22% faster."""
+    if not (x.is_cuda and x.dtype == torch.float32
+            and w.dtype == torch.float32):
+        return "autograd", "autograd"
+    b, cin, h, wd = x.shape
+    cout = w.shape[0]
+    if b * h * wd < 8192:
+        dgrad = "cudnn"
+    elif cout > cin:
+        dgrad = "aten_fwd"
+    else:
+        dgrad = "cudnn_fwd"
+    return dgrad, ("cudnn_nhwc" if cout < 32 else "cudnn")
+
+
+def _cudnn(enabled: bool):
+    """cuDNN on or off for one call: heuristic algorithms, TF32 off."""
+    return torch.backends.cudnn.flags(
+        enabled=enabled, benchmark=False,
+        deterministic=torch.backends.cudnn.deterministic, allow_tf32=False)
+
+
+def _conv_backward(gy, x, w, dx: bool, dw: bool, bias: bool = False):
+    """ATen's ``convolution_backward`` under the flags in force."""
+    return torch.ops.aten.convolution_backward(
+        gy, x, w, [w.shape[0]] if bias else None, *_GEOMETRY,
+        [dx, dw, bias])
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def _dgrad(route: str, gy, x, w) -> torch.Tensor:
+    if route == "cudnn":
+        with _cudnn(True):
+            return _conv_backward(gy, x, w, True, False)[0]
+    # the forward convolution of gy with the flipped, transposed weights
+    wt = w.flip((2, 3)).transpose(0, 1)
+    with _cudnn(route == "cudnn_fwd"):
+        return F.conv2d(gy, wt, padding=1)
+
+
+def _wgrad(route: str, gy, x, w) -> torch.Tensor:
+    with _cudnn(True):
+        if route == "cudnn_nhwc":
+            return _conv_backward(_nhwc(gy), _nhwc(x), _nhwc(w), False,
+                                  True)[1].contiguous()
+        return _conv_backward(gy, x, w, False, True)[1]
+
+
+class _Conv3x3Function(torch.autograd.Function):
+    """``F.conv2d(x, w, b, padding=1)`` under the caller's flags, with the
+    backward of :func:`backward_route`'s routes."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return F.conv2d(x, w, b, padding=1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        droute, wroute = backward_route(x, w)
+        if need_x:
+            _ROUTES["dgrad", droute] += 1
+        if need_w:
+            _ROUTES["wgrad", wroute] += 1
+        if droute == "autograd":
+            return _conv_backward(gy, x, w, need_x, need_w, need_b)
+        return (_dgrad(droute, gy, x, w) if need_x else None,
+                _wgrad(wroute, gy, x, w) if need_w else None,
+                gy.sum((0, 2, 3)) if need_b else None)
+
+
+class Conv3x3(nn.Conv2d):
+    """``nn.Conv2d(cin, cout, 3, padding=1)`` (same parameters and names)
+    whose backward takes the routes :func:`backward_route` picks."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _Conv3x3Function.apply(x, self.weight, self.bias)
 
 
 class BatchNorm2d(nn.Module):
@@ -114,10 +247,10 @@ class SegNet(nn.Module):
         for names, widths in zip(enc_names + dec_names,
                                  list(enc_stages) + list(dec_stages)):
             for name, w in zip(names, widths):
-                setattr(self, f"conv{name}", nn.Conv2d(cin, w, 3, padding=1))
+                setattr(self, f"conv{name}", Conv3x3(cin, w))
                 setattr(self, f"bn{name}", BatchNorm2d(w))
                 cin = w
-        self.conv11d = nn.Conv2d(cin, num_classes, 3, padding=1)
+        self.conv11d = Conv3x3(cin, num_classes)
 
     def _block(self, name: str, x: torch.Tensor) -> torch.Tensor:
         x = getattr(self, f"conv{name}")(x)

@@ -316,6 +316,56 @@ def test_segnet_step_on_card_matches_cpu():
         p_cpu, p_card.cpu())
 
 
+@pytest.mark.cuda
+def test_segnet_conv_backward_routes_on_card():
+    """SegNet's ``Conv3x3`` at one small shape for each route its rule
+    picks on the card (dgrad: cuDNN's forward of the flipped weights, ATen's
+    where the layer widens, cuDNN's dgrad below 8192 columns; wgrad: cuDNN's,
+    channels-last under 32 outputs): ``backward_routes`` shows each one
+    engage. Each float32 gradient lies within 1e-5 of the largest element
+    of the float64 CPU result for the same conv, but cuDNN's NCHW wgrad:
+    that route is autograd's own weight gradient, kept as it was, and is
+    held within 1e-6 of autograd's card result. Its Winograd algorithm
+    reads 6e-6-3e-5 of the largest against float64 at these and larger
+    maps, where the GEMM routes read under 1e-6."""
+    from densefusion_tpu_torch.models import segnet as sg
+
+    dev = _cuda()
+    cases = [((2, 32, 64, 64), 32, ("cudnn_fwd", "cudnn")),
+             ((2, 16, 64, 64), 32, ("aten_fwd", "cudnn")),
+             ((2, 32, 16, 16), 8, ("cudnn", "cudnn_nhwc"))]
+    rng = np.random.default_rng(8)
+    before = sg.backward_routes()
+    for shape, cout, routes in cases:
+        x = torch.from_numpy(rng.standard_normal(shape))
+        g = torch.from_numpy(rng.standard_normal(
+            (shape[0], cout) + shape[2:]))
+        conv = sg.Conv3x3(shape[1], cout).double()
+        with torch.no_grad():
+            conv.bias.normal_()
+        want = [t for t in torch.autograd.grad(
+            conv(x.requires_grad_()), (x, conv.weight, conv.bias), g)]
+        conv.to(dev, torch.float32)
+        xd = x.detach().to(dev, torch.float32).requires_grad_()
+        gd = g.to(dev, torch.float32)
+        assert sg.backward_route(xd, conv.weight) == routes
+        got = torch.autograd.grad(conv(xd), (xd, conv.weight, conv.bias), gd)
+        for name, gv, wv in zip(("input", "weight", "bias"), got, want):
+            gv = gv.cpu().double()
+            if name == "weight" and routes[1] == "cudnn":
+                y = torch.nn.functional.conv2d(xd, conv.weight, conv.bias,
+                                               padding=1)
+                wv = torch.autograd.grad(y, conv.weight, gd)[0].cpu().double()
+                tol = 1e-6
+            else:
+                tol = 1e-5
+            assert float((gv - wv).abs().max()) <= \
+                tol * float(wv.abs().max()), (routes, name)
+    taken = sg.backward_routes() - before
+    for d, w in (r for _, _, r in cases):
+        assert taken["dgrad", d] >= 1 and taken["wgrad", w] >= 1, taken
+
+
 def _one_rank_mesh():
     """A one-rank NCCL mesh in this process (torn down by the caller)."""
     from densefusion_tpu_torch.parallel import make_mesh

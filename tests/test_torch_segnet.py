@@ -36,7 +36,8 @@ from densefusion_tpu_torch import compat
 from densefusion_tpu_torch.losses import segmentation_loss
 from densefusion_tpu_torch.models import SegNet
 from densefusion_tpu_torch.models.layers import max_pool_argmax, max_unpool
-from densefusion_tpu_torch.models.segnet import BatchNorm2d
+from densefusion_tpu_torch.models import segnet as segnet_module
+from densefusion_tpu_torch.models.segnet import BatchNorm2d, Conv3x3
 from densefusion_tpu_torch.train import make_optimizer
 from densefusion_tpu_torch.train.seg import (
     SegTrainState, create_seg_train_state, make_seg_eval_step,
@@ -218,6 +219,74 @@ def test_batchnorm_matches_flax(shape):
 
 
 # -- SegNet -----------------------------------------------------------------
+
+# (B, Cin, H, W, Cout): the narrow net's first, widening, deepest and
+# classifier convs, the full width's first conv and a 512 -> 512 one
+CONV_SHAPES = [(2, 3, 32, 32, 8), (2, 8, 16, 16, 12), (2, 16, 2, 2, 16),
+               (2, 8, 32, 32, 5), (2, 3, 24, 32, 64), (2, 512, 4, 6, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("routes", [None, ("cudnn", "cudnn"),
+                                    ("cudnn_fwd", "cudnn_nhwc"),
+                                    ("aten_fwd", "cudnn")],
+                         ids=["rule", "cudnn", "fwd-nhwc", "aten-fwd"])
+@pytest.mark.parametrize("shape", CONV_SHAPES,
+                         ids=lambda s: "{1}to{4}-{2}x{3}".format(*s))
+def test_conv3x3_matches_conv2d_autograd(shape, routes, dtype, monkeypatch):
+    """``Conv3x3``'s forward equals ``F.conv2d`` bit for bit; its input,
+    weight and bias gradients equal autograd's through ``F.conv2d`` bit for
+    bit by the rule's route on the CPU (autograd's own), and by each route
+    the rule can pick on the card (run here on the CPU: the flipped
+    forward, cuDNN's backward entry, channels-last) within float32
+    round-off (1e-5 of each gradient's largest element) or, in float64,
+    1e-12; ``backward_routes`` counts the calls."""
+    b, cin, h, w, cout = shape
+    gen = torch.Generator().manual_seed(cin * 1000 + cout)
+    conv = Conv3x3(cin, cout).to(dtype)
+    with torch.no_grad():
+        conv.bias.normal_(generator=gen)
+    x = torch.randn((b, cin, h, w), generator=gen, dtype=dtype,
+                    requires_grad=True)
+    g = torch.randn((b, cout, h, w), generator=gen, dtype=dtype)
+    if routes is not None:
+        monkeypatch.setattr(segnet_module, "backward_route",
+                            lambda *_: routes)
+    want_y = torch.nn.functional.conv2d(x, conv.weight, conv.bias, padding=1)
+    want = torch.autograd.grad(want_y, (x, conv.weight, conv.bias), g)
+    before = segnet_module.backward_routes()
+    y = conv(x)
+    assert torch.equal(y, want_y)
+    got = torch.autograd.grad(y, (x, conv.weight, conv.bias), g)
+    d, wr = routes or ("autograd", "autograd")
+    assert segnet_module.backward_routes() - before == {("dgrad", d): 1,
+                                                        ("wgrad", wr): 1}
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for name, gv, wv in zip(("input", "weight", "bias"), got, want):
+        if routes is None:
+            assert torch.equal(gv, wv), name
+        else:
+            assert float((gv - wv).abs().max()) <= \
+                tol * float(wv.abs().max()), name
+
+
+def test_conv3x3_route_rule_and_first_layer():
+    """The rule keeps autograd's route on the CPU and outside float32; a
+    conv whose input needs no gradient (SegNet's first) takes no dgrad."""
+    x = torch.zeros((1, 3, 8, 8))
+    w = torch.zeros((4, 3, 3, 3))
+    assert segnet_module.backward_route(x, w) == ("autograd", "autograd")
+    assert segnet_module.backward_route(x.double(), w.double()) == (
+        "autograd", "autograd")
+    conv = Conv3x3(3, 4)
+    before = segnet_module.backward_routes()
+    conv(torch.randn((1, 3, 8, 8))).sum().backward()
+    assert segnet_module.backward_routes() - before == {
+        ("wgrad", "autograd"): 1}
+    assert isinstance(conv, torch.nn.Conv2d)
+    assert [n for n, _ in conv.named_parameters()] == ["weight", "bias"]
+
 
 def test_compat_round_trip(setup):
     """flax variables -> state_dict -> variables exact; the state_dict has
